@@ -1,0 +1,515 @@
+"""Li-GD — Loop-iteration Gradient Descent (paper §III, Table I) and the
+cold-start GD baseline it is compared against (Corollary 4).
+
+Structure per the paper:
+  1. relax β ∈ {0,1} -> [0,1] (Corollary 1 makes Γ differentiable);
+  2. for each candidate split point s: run projected GD on (β_up, β_dn, p,
+     P, r) to minimise Γ_s (eq. 27);
+  3. WARM START: layer j's GD starts from the solved layer whose
+     intermediate data size w is closest to w_j (Table I lines 13–16);
+  4. pick s* = argmin_s Γ_s, round β to one-hot (≤3 users/channel); SIC-
+     infeasible users fall back to device-only (paper §II.B).
+
+GD details: plain descent with a fixed per-variable diagonal preconditioner
+(each variable's step is scaled by its feasible range), projection = box
+clip + β row renormalisation.  Stops when ‖g‖<ε, |ΔΓ|<ε, or k = max_steps.
+
+The port runs every solve over a leading cell axis B (a single cell is a
+batch of one).  ``_gd_core`` steps all B lanes at once and freezes each
+converged lane with ``torch.where``, so every lane's iterates and ``iters``
+equal an isolated solve's — and equal the JAX package's vmapped
+while-loop.  The warm-start predecessor graph depends only on the profile,
+so ``_sweep_core`` is a Python loop over the F+1 layers with the fused
+step's static operands (``build_aux``) built once per sweep.
+
+``SolverSpec.backend``:
+  ``reference`` — reads the device-side "all lanes done" flag every step;
+  ``chunked``   — reads it every ``gd_chunk`` steps (one host sync per
+                  chunk); the extra steps a done lane takes are selected
+                  away, so results equal ``reference``'s exactly.
+``step_impl``: ``fused`` (the port's default — the era_step CUDA kernel on
+the card, its plain version on the CPU) or ``autograd`` (torch.autograd of
+``era.utility``, the counterpart of the JAX package's ``xla``).
+
+Beyond-paper extension (``per_user_split=True``, "ERA+"): reuse the F+1
+solved GD problems to pick per-user s_i = argmin_s of user i's utility
+contribution, then re-polish the allocation with the mixed split vector.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from dataclasses import replace as _dc_replace
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import network, noma, profiles, qoe
+from repro_torch.core.era import (Allocation, Terms, Weights, clip_alloc,
+                                  delay_terms, energy, lam, round_beta,
+                                  uniform_alloc, utility)
+from repro_torch.core.network import env_col, tree_map
+
+_BACKENDS = ("reference", "chunked")
+_NOT_PORTED = ("sharded", "multihost")
+_BUCKETS = ("pow2", "exact", "full")
+_STEP_IMPLS = ("autograd", "fused")
+
+# gd_chunk a `backend="chunked"` spec defaults to when none is given
+DEFAULT_GD_CHUNK = 8
+
+
+@dataclass(frozen=True)
+class SolverSpec:
+    """Frozen, validated description of HOW a Li-GD solve runs.
+
+    Fields:
+      backend         'reference' | 'chunked' (module docs).
+      gd_chunk        steps between done-flag reads; 0 on 'reference'
+                      (enforced), ``DEFAULT_GD_CHUNK`` when 'chunked'
+                      leaves it at 0.
+      lr / tol /
+      max_steps       the GD knobs of Table I.
+      warm_start      Table I's nearest-w predecessor warm start inside
+                      one sweep (False = the cold-start GD baseline).
+      warm            cross-ROUND warm start, consumed by the serving layer.
+      per_user_split  ERA+ per-user split pick + polish (beyond paper).
+      adaptive        backtracking step-size control (beyond paper).
+      bucket          partial-round padding policy: 'pow2' | 'exact' |
+                      'full'.
+      step_impl       'fused' (default) | 'autograd'.
+    """
+    backend: str = "reference"
+    gd_chunk: int = 0
+    lr: float = 0.05
+    tol: float = 1e-5
+    max_steps: int = 400
+    warm_start: bool = True
+    warm: bool = True
+    per_user_split: bool = False
+    adaptive: bool = False
+    bucket: str = "pow2"
+    step_impl: str = "fused"
+
+    def __post_init__(self):
+        if self.backend in _NOT_PORTED:
+            raise NotImplementedError(
+                f"backend={self.backend!r} is not ported yet: it waits for "
+                "the 'Distributed' item of ROADMAP.md's queue of modules "
+                "to port")
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.bucket not in _BUCKETS:
+            raise ValueError(f"bucket must be one of {_BUCKETS}, "
+                             f"got {self.bucket!r}")
+        if self.gd_chunk < 0:
+            raise ValueError(f"gd_chunk must be >= 0, got {self.gd_chunk}")
+        if self.backend == "chunked" and self.gd_chunk == 0:
+            object.__setattr__(self, "gd_chunk", DEFAULT_GD_CHUNK)
+        if self.backend == "reference" and self.gd_chunk:
+            raise ValueError("backend='reference' reads the done flag every "
+                             "step; use backend='chunked' for gd_chunk>0")
+        if self.step_impl not in _STEP_IMPLS:
+            raise ValueError(f"step_impl must be one of {_STEP_IMPLS}, "
+                             f"got {self.step_impl!r}")
+        if not self.lr > 0:
+            raise ValueError(f"lr must be > 0, got {self.lr}")
+        if self.tol < 0:
+            raise ValueError(f"tol must be >= 0, got {self.tol}")
+        if self.max_steps < 1:
+            raise ValueError(f"max_steps must be >= 1, got {self.max_steps}")
+
+    def replace(self, **kw) -> "SolverSpec":
+        """Functional update (re-validated)."""
+        return _dc_replace(self, **kw)
+
+    @property
+    def check_every(self) -> int:
+        """Steps between reads of the device-side done flag."""
+        return self.gd_chunk or 1
+
+
+class GDResult(NamedTuple):
+    alloc: Allocation
+    gamma: torch.Tensor
+    iters: torch.Tensor
+
+
+class LiGDOutcome(NamedTuple):
+    s: np.ndarray                 # (U,) chosen split per user
+    alloc: Allocation             # rounded allocation
+    terms: Terms                  # evaluated at the rounded solution
+    gamma_by_layer: np.ndarray    # (F+1,) Γ_s landscape
+    iters_by_layer: np.ndarray    # (F+1,) GD iterations (Corollary 4 data)
+    total_iters: int
+
+
+def _scales(env):
+    """Per-variable preconditioner ranges from the (batched) ``CellEnv``."""
+    return Allocation(
+        beta_up=1.0,
+        beta_dn=1.0,
+        p=env.p_max_w - env.p_min_w,
+        p_ap=env.ap_p_max_w - env.ap_p_min_w,
+        r=env.r_max - env.r_min,
+    )
+
+
+def _select(cond, new, old):
+    """Per-lane select over an Allocation (or tensor) with leading B."""
+    return tree_map(lambda n, o: torch.where(env_col(cond, n), n, o),
+                    new, old)
+
+
+def _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
+             adaptive=False, step_impl="fused", step_aux=None,
+             check_every=1) -> GDResult:
+    """Projected, preconditioned GD on Γ over B lanes at once.
+
+    ``scn``/``s_vec``/``q``/``x0`` carry the leading cell axis B.  Each
+    lane steps until its own stop test fires or it reaches ``max_steps``;
+    a stopped lane's carry (iterate, last Γ, count, done flag, step size)
+    is frozen by select while the others go on, so per-lane results are
+    those of an isolated solve.  The host reads the "all lanes stopped"
+    flag every ``check_every`` steps.
+
+    ``adaptive=True``: backtracking step control — shrink 0.5× on a
+    worsening step (and reject it), grow 1.1× on an improving one.
+    ``step_impl='fused'`` takes Γ and ∂Γ from the era_step kernel (its
+    plain version on the CPU); the final Γ of the solve and the adaptive
+    path's extra forward stay on ``utility``."""
+
+    def loss(alloc):
+        return utility(scn, prof, s_vec, alloc, q, w).gamma
+
+    if step_impl == "fused":
+        from repro_torch.kernels.era_step import ops as _era_step_ops
+        aux = (step_aux if step_aux is not None
+               else _era_step_ops.build_aux(scn))
+        consts = _era_step_ops.layer_operands(scn, prof, s_vec, q, w)
+
+        def grad_fn(alloc):
+            return _era_step_ops.era_step_value_and_grad(
+                scn, prof, s_vec, q, alloc, w, aux=aux, consts=consts)
+    else:
+        def grad_fn(alloc):
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_(True) for x in alloc]
+                val = loss(Allocation(*leaves))
+                grads = torch.autograd.grad(val.sum(), leaves)
+            return val.detach(), Allocation(*grads)
+
+    scales = _scales(scn.env)
+    n_lanes = x0.p.shape[0]
+    dev = x0.p.device
+
+    def body(alloc, prev_val, cur_lr):
+        val, g = grad_fn(alloc)
+        # guard against inf gradients from degenerate (near-zero-rate)
+        # allocations: 1/R² terms in eq. (34) blow up as R -> 0
+        g = Allocation(*(torch.where(torch.isfinite(x), x,
+                                     torch.zeros_like(x)) for x in g))
+        sq = 0.0
+        for x in g:
+            sq = sq + torch.sum(x ** 2, dim=tuple(range(1, x.dim())))
+        gnorm = torch.sqrt(sq)
+        step = Allocation(*(
+            env_col(cur_lr, gg) * env_col(sc, gg) * gg
+            / env_col(gnorm + 1e-12, gg)
+            for gg, sc in zip(g, scales)))
+        new = clip_alloc(scn, Allocation(*(a - d for a, d in
+                                           zip(alloc, step))))
+        if adaptive:
+            new_val = loss(new)
+            improved = new_val < val
+            new = _select(improved, new, alloc)
+            new_val = torch.where(improved, new_val, val)
+            cur_lr = torch.where(improved, cur_lr * 1.1, cur_lr * 0.5)
+            done = ((torch.abs(new_val - val) < tol * (1.0 + torch.abs(val)))
+                    | (gnorm < tol) | (cur_lr < lr * 1e-3))
+            return new, new_val, done, cur_lr
+        # plain GD: the |ΔΓ| stop compares against the previous iterate's
+        # value instead of paying a third Γ evaluation per step
+        done = ((torch.abs(val - prev_val) < tol * (1.0 + torch.abs(val)))
+                | (gnorm < tol))
+        return new, val, done, cur_lr
+
+    alloc = x0
+    prev_val = (loss(x0) if adaptive else
+                torch.full((n_lanes,), float("inf"), device=dev))
+    k = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
+    done = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    cur_lr = torch.full((n_lanes,), lr, dtype=torch.float32, device=dev)
+    for it in range(max_steps):
+        active = ~done & (k < max_steps)
+        if it % check_every == 0 and not bool(active.any()):
+            break
+        new, val, new_done, new_lr = body(alloc, prev_val, cur_lr)
+        alloc = _select(active, new, alloc)
+        prev_val = torch.where(active, val, prev_val)
+        done = torch.where(active, new_done, done)
+        cur_lr = torch.where(active, new_lr, cur_lr)
+        k = k + active.to(k.dtype)
+    return GDResult(alloc, loss(alloc), k)
+
+
+def warm_start_predecessors(uplink_bits, warm_start: bool = True
+                            ) -> np.ndarray:
+    """Host-side precompute of Table I's nearest-w warm-start rule.
+
+    Returns ``pred`` (F+1,) int32: the GD for split point s starts from
+    the solved allocation of split ``pred[s]`` — the already-visited split
+    whose intermediate data size is nearest ``w_s`` (first index wins
+    ties).  ``pred[s] == s`` means "start cold" (s = 0, or the
+    ``warm_start=False`` baseline)."""
+    if isinstance(uplink_bits, torch.Tensor):
+        uplink_bits = uplink_bits.detach().cpu().numpy()
+    wbits = np.asarray(uplink_bits)
+    n = wbits.shape[0]
+    pred = np.arange(n, dtype=np.int32)
+    if warm_start:
+        for s in range(1, n):
+            pred[s] = np.argmin(np.abs(wbits[s] - wbits[:s]))
+    return pred
+
+
+def _sweep_core(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
+                adaptive=False, step_impl="fused", check_every=1
+                ) -> GDResult:
+    """The whole F+1 split sweep over B lanes: a loop over layers whose
+    slot buffer (leading axis F+1, then B) starts as ``x_init`` in every
+    slot; layer s reads slot ``pred[b, s]`` per lane, runs GD, and writes
+    slot s.  Returns a GDResult whose leaves carry (B, F+1, ...)."""
+    n_lanes, n_s = pred.shape
+    u = q.shape[-1]
+    dev = q.device
+    lanes = torch.arange(n_lanes, device=dev)
+    buf = tree_map(lambda x: x[None].repeat((n_s,) + (1,) * x.dim()),
+                   x_init)
+    step_aux = None
+    if step_impl == "fused":
+        from repro_torch.kernels.era_step import ops as _era_step_ops
+        step_aux = _era_step_ops.build_aux(scn)
+    pred_t = torch.as_tensor(np.asarray(pred), dtype=torch.int64, device=dev)
+    gammas, iters = [], []
+    for s in range(n_s):
+        x0 = tree_map(lambda b: b[pred_t[:, s], lanes], buf)
+        s_vec = torch.full((n_lanes, u), s, dtype=torch.int64, device=dev)
+        res = _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
+                       adaptive=adaptive, step_impl=step_impl,
+                       step_aux=step_aux, check_every=check_every)
+        for b, a in zip(buf, res.alloc):
+            b[s] = a
+        gammas.append(res.gamma)
+        iters.append(res.iters)
+    return GDResult(tree_map(lambda b: b.transpose(0, 1), buf),
+                    torch.stack(gammas, dim=1), torch.stack(iters, dim=1))
+
+
+def _per_user_cost(scn, prof, s_vec, alloc, q, w: Weights):
+    """User i's summand of Γ (for the ERA+ per-user split pick)."""
+    t_dev, t_srv, t_up, t_dn, r_up, r_dn = delay_terms(scn, prof, s_vec, alloc)
+    t = t_dev + t_srv + t_up + t_dn
+    e = energy(scn, prof, s_vec, alloc, r_up, r_dn)
+    r_ind = qoe.indicator(t, q, w.qoe_a)
+    c_i = (t - q) * r_ind
+    return (w.w_t * t * w.t_scale + w.w_q * (c_i * w.t_scale + r_ind)
+            + w.w_r * (e * w.e_scale + lam(alloc.r, scn.env) * w.r_cost_scale))
+
+
+def _cost_table(scn, prof, stacked, q, w):
+    """(B, F+1, U) table of each user's Γ summand at every solved split;
+    one layer at a time (each evaluation holds the (B, M, U, U) SIC
+    masks)."""
+    n_lanes, n_s = stacked.p.shape[:2]
+    u = q.shape[-1]
+    cols = []
+    for s in range(n_s):
+        s_vec = torch.full((n_lanes, u), s, dtype=torch.int64,
+                           device=q.device)
+        cols.append(_per_user_cost(scn, prof, s_vec,
+                                   tree_map(lambda x: x[:, s], stacked),
+                                   q, w))
+    return torch.stack(cols, dim=1)
+
+
+def _discretize(scn, prof, s_user, hard, q, w, f):
+    """SIC feasibility fallback + final Γ at the rounded allocation."""
+    feasible = noma.sic_feasible(scn, hard.beta_up, hard.p)
+    s_final = torch.where(feasible, s_user, torch.full_like(s_user, f))
+    return s_final, utility(scn, prof, s_final, hard, q, w)
+
+
+def stack_allocs(allocs) -> Allocation:
+    """Stack per-cell Allocations along a new leading cell axis B."""
+    allocs = list(allocs)
+    if not allocs:
+        raise ValueError("need at least one allocation")
+    return tree_map(lambda *xs: torch.stack(xs), *allocs)
+
+
+def warm_start_from(outcomes) -> Allocation:
+    """Batched warm-start point from the previous round's outcomes."""
+    return stack_allocs([o.alloc for o in outcomes])
+
+
+def soften_beta(scn, alloc: Allocation, eps: float = 0.1) -> Allocation:
+    """Blend a hard one-hot β back into the simplex interior so a previous
+    outcome can seed a new GD run (gradients at exact vertices are brittle)."""
+    m = scn.cfg.n_subchannels
+
+    def mix(b):
+        return (1.0 - eps) * b + eps / m
+
+    return alloc._replace(beta_up=mix(alloc.beta_up),
+                          beta_dn=mix(alloc.beta_dn))
+
+
+def _finalize(prep, q, w, swept, spec: SolverSpec) -> List[LiGDOutcome]:
+    """Shared post-sweep discretisation over B lanes: s* pick (+ ERA+
+    per-user split & polish), per-cell β rounding on the host, SIC
+    fallback and final Γ."""
+    scn_b, scn_list, prof_b = prep.scn_b, prep.scn_list, prep.prof_b
+    n_cells = len(scn_list)
+    f = prep.prof_list[0].n_layers
+    u = q.shape[-1]
+    dev = q.device
+    gammas = swept.gamma.cpu().numpy()                      # (B, F+1)
+    iters = swept.iters.cpu().numpy()
+    s_star = torch.as_tensor(np.argmin(gammas, axis=1), device=dev)
+    lanes = torch.arange(n_cells, device=dev)
+    x_star = tree_map(lambda x: x[lanes, s_star], swept.alloc)
+
+    if spec.per_user_split:
+        costs = _cost_table(scn_b, prof_b, swept.alloc, q, w)  # (B, F+1, U)
+        s_user = torch.argmin(costs, dim=1)
+        alloc_b = _gd_core(scn_b, s_user, q, x_star, spec.lr, spec.tol,
+                           spec.max_steps, w, prof_b,
+                           adaptive=spec.adaptive,
+                           step_impl=spec.step_impl,
+                           check_every=spec.check_every).alloc
+    else:
+        s_user = s_star[:, None].expand(n_cells, u)
+        alloc_b = x_star
+
+    # discretise per cell (host greedy), then one batched SIC+Γ evaluation
+    hard_list = [round_beta(scn_list[b], tree_map(lambda x: x[b], alloc_b))
+                 for b in range(n_cells)]
+    hard_b = stack_allocs(hard_list)
+    s_final_b, terms_b = _discretize(scn_b, prof_b, s_user, hard_b, q, w, f)
+    s_final_np = s_final_b.cpu().numpy()
+    return [
+        LiGDOutcome(
+            s=s_final_np[b],
+            alloc=hard_list[b],
+            terms=Terms(*(leaf[b] for leaf in terms_b)),
+            gamma_by_layer=gammas[b],
+            iters_by_layer=iters[b],
+            total_iters=int(iters[b].sum()),
+        )
+        for b in range(n_cells)
+    ]
+
+
+class BatchPrep(NamedTuple):
+    """Round-invariant inputs of ``solve_batch`` (stacked scenarios,
+    stacked/per-cell profiles, warm-start predecessor matrix)."""
+    scn_b: object                 # batched Scenario (leading cell axis)
+    scn_list: tuple               # per-cell Scenarios
+    prof_b: object                # shared or stacked SplitProfile
+    prof_list: tuple              # per-cell SplitProfiles
+    prof_batched: bool
+    pred_b: np.ndarray            # (B, F+1) warm-start predecessors
+    hetero: bool = False          # cells carry different numeric params
+
+
+def prepare_batch(scns, prof, warm_start: bool = True) -> BatchPrep:
+    """Precompute everything about (cells, profiles) that does not change
+    between solves.  ``scns``: list of Scenarios or an already-stacked
+    batched Scenario; ``prof``: shared profile or per-cell list."""
+    if isinstance(scns, (list, tuple)):
+        scn_list = tuple(scns)
+        scn_b = network.stack_scenarios(scn_list)
+    else:
+        scn_b = scns
+        scn_list = tuple(tree_map(lambda x, b=b: x[b], scn_b)
+                         for b in range(scn_b.assoc.shape[0]))
+    n_cells = len(scn_list)
+
+    if isinstance(prof, (list, tuple)):
+        prof_list = tuple(prof)
+        if len(prof_list) != n_cells:
+            raise ValueError("need one profile per cell")
+        prof_b = profiles.stack_profiles(prof_list)
+        prof_batched = True
+    else:
+        prof_list = (prof,) * n_cells
+        prof_b = prof
+        prof_batched = False
+
+    pred_b = np.stack([warm_start_predecessors(p.uplink_bits, warm_start)
+                       for p in prof_list])
+    hetero = network.envs_differ(scn_list)
+    return BatchPrep(scn_b, scn_list, prof_b, prof_list, prof_batched,
+                     pred_b, hetero)
+
+
+def solve_batch(scns, prof, q, w: Weights = Weights(), *,
+                spec: SolverSpec = None, prep: BatchPrep = None,
+                init_alloc: Allocation = None) -> List[LiGDOutcome]:
+    """Schedule B independent cells with one batched sweep.
+
+      scns: a list/tuple of structurally compatible ``Scenario``s, or an
+        already-stacked batched Scenario.
+      prof: one shared ``SplitProfile``, or a list of per-cell profiles
+        with equal layer counts.
+      q: (B, U) per-cell QoE thresholds.
+      prep: a ``prepare_batch`` result (``scns``/``prof``/
+        ``spec.warm_start`` are then ignored in its favour).
+      init_alloc: a batched Allocation with leading axis B (typically
+        ``warm_start_from(previous_outcomes)``) or a list of per-cell
+        Allocations; hard one-hot β rows are softened (``soften_beta``).
+
+    Returns one ``LiGDOutcome`` per cell."""
+    spec = SolverSpec() if spec is None else spec
+    if prep is None:
+        prep = prepare_batch(scns, prof, spec.warm_start)
+    scn_b = prep.scn_b
+    n_cells = len(prep.scn_list)
+    q = torch.as_tensor(q, dtype=torch.float32, device=scn_b.device)
+    if q.dim() != 2 or q.shape[0] != n_cells:
+        raise ValueError(f"q must be (B, U) with B={n_cells}, "
+                         f"got {tuple(q.shape)}")
+    if init_alloc is not None:
+        if not isinstance(init_alloc, Allocation) \
+                and isinstance(init_alloc, (list, tuple)):
+            init_alloc = stack_allocs(init_alloc)
+        if init_alloc.p.shape[0] != n_cells:
+            raise ValueError(f"init_alloc must carry a leading B={n_cells} "
+                             f"axis, got {tuple(init_alloc.p.shape)}")
+        x_init = soften_beta(scn_b, tree_map(
+            lambda x: x.to(device=scn_b.device, dtype=torch.float32),
+            init_alloc))
+    else:
+        x_init = uniform_alloc(scn_b)
+    with torch.no_grad():
+        swept = _sweep_core(scn_b, q, x_init, prep.pred_b, spec.lr,
+                            spec.tol, spec.max_steps, w, prep.prof_b,
+                            adaptive=spec.adaptive,
+                            step_impl=spec.step_impl,
+                            check_every=spec.check_every)
+        return _finalize(prep, q, w, swept, spec)
+
+
+def solve(scn, prof, q, w: Weights = Weights(), *, spec: SolverSpec = None,
+          init_alloc: Allocation = None) -> LiGDOutcome:
+    """Run Li-GD (``spec.warm_start=True``) or the cold-start GD baseline
+    over every candidate split point for one cell: a batch of one.
+
+    ``init_alloc`` (online ERA): seed layer 1's GD from a previous time
+    step's solution instead of the uninformed start."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=scn.device)
+    init = None if init_alloc is None else stack_allocs([init_alloc])
+    return solve_batch([scn], prof, q[None], w, spec=spec,
+                       init_alloc=init)[0]

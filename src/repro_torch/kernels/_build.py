@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands under ``build/repro_torch/<hash>/`` at the repository root,
+keyed by a hash of the sources and flags, so a checkout builds it at first
+use and reuses it after.  The sources compile in parallel, one ``nvcc`` per
+file, then link.  No ``--use_fast_math``: ``log2f``, ``expf`` and division
+must stay accurate for the kernels' 1e-5 agreement with their plain
+versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parents[1] / "build" / "repro_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"] + ARCH
+LIB_NAME = "librepro_torch_kernels.so"
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            exe = str(cand)
+    if exe is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return exe
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _key(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet) and return the
+    library's path."""
+    sources = _sources()
+    out_dir = BUILD_ROOT / _key(sources)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+            (out_dir / (src.stem + ".ptxas.txt")).write_text(out)
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call), with every entry
+    point's argument types declared."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # 18 operands, 5 outputs, 3 scratch buffers; B, M, U, N; the stream
+    lib.era_step_launch.argtypes = [ptr] * 26 + [i32] * 4 + [ptr]
+    lib.era_step_launch.restype = i32
+    # contrib, sig, key, inter, bw, out; B, M, U; the stream
+    lib.noma_rate_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+    lib.noma_rate_launch.restype = i32
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

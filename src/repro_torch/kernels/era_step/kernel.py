@@ -1,0 +1,94 @@
+"""Wrapper of the hand-written CUDA era_step kernel (csrc/era_step.cu).
+
+``era_step_fused`` takes the 18 channel-major operands of
+``ref.fused_step_math`` with a leading cell axis B and returns
+``(gamma (B,), d_beta_up_t (B, M, U), d_beta_dn_t, d_p (B, 1, U), d_pap,
+d_r)``.  CUDA tensors launch the kernel (one launch covers every cell);
+CPU tensors take the plain version.  ``era_step_fused.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.era_step import ref as _ref
+
+MAX_APS = 8                       # kMaxAps in era_step.cu
+SMEM_ROWS = 10                    # pass1's dynamic shared rows of U words
+SMEM_STATIC = 2 * MAX_APS * 32 * 4  # pass1's block-reduction buffer
+SMEM_LIMIT = 232448               # bytes a block may use on sm_90
+
+_NAMES = ("beta_up_t", "beta_dn_t", "p", "p_ap", "r", "q", "dev_fl",
+          "edge_fl", "wup", "wdn", "envp", "h_up_r", "h_dn_r", "onehot", "up_rank", "up_gid", "dn_rank", "dn_gid")
+_INT_OPERANDS = {"up_rank", "up_gid", "dn_rank", "dn_gid"}
+
+
+def _expected_shapes(b, m, u, n):
+    mu, row = (b, m, u), (b, 1, u)
+    return {"beta_up_t": mu, "beta_dn_t": mu, "p": row, "p_ap": row,
+            "r": row, "q": row, "dev_fl": row, "edge_fl": row, "wup": row,
+            "wdn": row, "envp": (b, 1, _ref.ENV_LANES),
+            "h_up_r": (b, n, m, u), "h_dn_r": (b, n, m, u),
+            "onehot": (b, n, u), "up_rank": mu, "up_gid": mu,
+            "dn_rank": mu, "dn_gid": mu}
+
+
+def _check(operands):
+    if len(operands) != len(_NAMES):
+        raise ValueError(f"expected {len(_NAMES)} operands, "
+                         f"got {len(operands)}")
+    b, m, u = operands[0].shape
+    n = operands[_NAMES.index("onehot")].shape[1]
+    if n > MAX_APS:
+        raise ValueError(f"era_step kernel takes at most {MAX_APS} APs, "
+                         f"got {n}")
+    smem = SMEM_ROWS * u * 4 + SMEM_STATIC
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"U={u} needs {smem} bytes of shared memory per "
+                         f"block, above {SMEM_LIMIT}")
+    want = _expected_shapes(b, m, u, n)
+    dev = operands[0].device
+    for name, x in zip(_NAMES, operands):
+        dtype = torch.int32 if name in _INT_OPERANDS else torch.float32
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {want[name]}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return b, m, u, n
+
+
+def era_step_fused(*operands):
+    """One fused forward+backward GD step for B cells."""
+    b, m, u, n = _check(operands)
+    if operands[0].device.type == "cpu":
+        gamma, grads = _ref.fused_step_math(*operands)
+        return (gamma,) + tuple(grads)
+    lib = _build.library()
+    dev = operands[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    gamma = torch.empty((b,), **f32)
+    d_bu = torch.empty((b, m, u), **f32)
+    d_bd = torch.empty((b, m, u), **f32)
+    d_pp = torch.empty((2, b, 1, u), **f32)
+    d_r = torch.empty((b, 1, u), **f32)
+    parts = torch.empty((2, b, m, u), **f32)
+    rates = torch.empty((2, b, u), **f32)
+    rows = torch.empty((4, b, u), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.era_step_launch(
+        *(x.data_ptr() for x in operands),
+        gamma.data_ptr(), d_bu.data_ptr(), d_bd.data_ptr(), d_pp.data_ptr(),
+        d_r.data_ptr(), parts.data_ptr(), rates.data_ptr(), rows.data_ptr(),
+        b, m, u, n, stream)
+    _build.check(status, "era_step_launch")
+    era_step_fused.launches += 1
+    return gamma, d_bu, d_bd, d_pp[0], d_pp[1], d_r
+
+
+era_step_fused.launches = 0

@@ -1,0 +1,286 @@
+"""The port's kernels' plain versions against the JAX package's oracles
+(CPU), and the CUDA kernels against their plain versions (``cuda`` marker:
+run on a card with ``PYTHONPATH=src python -m pytest --noconftest -m cuda
+tests/test_torch_kernels.py``; elsewhere they skip from inside the
+``cuda_device`` fixture).
+
+The card's machine has no JAX, so this module imports the JAX package only
+inside the ``J`` fixture, which only the CPU comparisons request."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import port_bridge as pb
+from repro_torch.core import era, network, noma, profiles
+from repro_torch.kernels.era_step import ops as eops
+from repro_torch.kernels.era_step import ref as eref
+from repro_torch.kernels.era_step.kernel import era_step_fused
+from repro_torch.kernels.noma_rate import ops as nops
+from repro_torch.kernels.noma_rate import ref as nref
+from repro_torch.kernels.noma_rate.kernel import noma_rate
+
+SIZES = [(12, 6), (8, 4)]
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX package and the pieces of it these comparisons use."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import era as jera
+    from repro.core import network as jnet
+    from repro.core import noma as jnoma
+    from repro.core import profiles as jprof
+    from repro.kernels.era_step import ops as jeops
+    from repro.kernels.noma_rate import ref as jnref
+    return SimpleNamespace(jax=jax, jnp=jnp, era=jera, net=jnet,
+                           noma=jnoma, prof=jprof, eops=jeops, nref=jnref)
+
+
+def _alloc(J, u, m, seed, lead=()):
+    jax, jnp = J.jax, J.jnp
+    ks = jax.random.split(jax.random.PRNGKey(100 + seed), 5)
+    return J.era.Allocation(
+        beta_up=jax.nn.softmax(jax.random.normal(ks[0], lead + (u, m)), -1),
+        beta_dn=jax.nn.softmax(jax.random.normal(ks[1], lead + (u, m)), -1),
+        p=jnp.exp(jax.random.normal(ks[2], lead + (u,)) * 0.3) * 0.1,
+        p_ap=jnp.exp(jax.random.normal(ks[3], lead + (u,)) * 0.3),
+        r=1.0 + jnp.exp(jax.random.normal(ks[4], lead + (u,)) * 0.2))
+
+
+@pytest.fixture(scope="module", params=SIZES, ids=lambda s: f"u{s[0]}m{s[1]}")
+def step_case(request, J):
+    """One cell's fused-step inputs on both sides, plus the JAX oracle's
+    and jax.value_and_grad's answers, built once per size."""
+    jax, jnp, jera, jnet, jprof, jeops = (J.jax, J.jnp, J.era, J.net,
+                                          J.prof, J.eops)
+    u, m = request.param
+    cfg = jnet.small_config(n_users=u, n_subchannels=m)
+    jscn = jnet.make_scenario(jax.random.PRNGKey(u * m), cfg)
+    jp = jprof.get_profile("nin")
+    ja = _alloc(J, u, m, seed=u + m)
+    q = jnp.full((u,), 0.4)
+    s = jnp.full((u,), 3, jnp.int32)
+    jw = jera.Weights()
+    aux = jeops.build_aux(jscn)
+    g_ref, grad_ref = jeops.era_step_value_and_grad(jscn, jp, s, q, ja, jw,
+                                                    aux=aux, impl="ref")
+    g_ad, grad_ad = jax.value_and_grad(
+        lambda a: jera.utility(jscn, jp, s, a, q, jw).gamma)(ja)
+    ref = dict(g_ref=float(g_ref), grad_ref=grad_ref,
+               g_ad=float(g_ad), grad_ad=grad_ad,
+               rank=[np.asarray(x) for x in
+                     (aux.up_rank, aux.up_gid, aux.dn_rank, aux.dn_gid)])
+    port = dict(scn=pb.scenario(jscn), prof=pb.profile(jp),
+                alloc=pb.allocation(ja), q=torch.full((u,), 0.4),
+                s=torch.full((u,), 3, dtype=torch.int64), w=pb.weights(jw))
+    return ref, port
+
+
+def _port_step(pt):
+    return eops.era_step_value_and_grad(pt["scn"], pt["prof"], pt["s"],
+                                        pt["q"], pt["alloc"], pt["w"])
+
+
+def test_plain_era_step_matches_jax_oracle(step_case):
+    ref, pt = step_case
+    gamma, grad = _port_step(pt)
+    np.testing.assert_allclose(float(gamma), ref["g_ref"], rtol=1e-5)
+    pb.assert_leaves_close(grad, ref["grad_ref"], atol=1e-5)
+
+
+def test_plain_era_step_matches_jax_autodiff(step_case):
+    ref, pt = step_case
+    gamma, grad = _port_step(pt)
+    np.testing.assert_allclose(float(gamma), ref["g_ad"], rtol=1e-5)
+    pb.assert_leaves_close(grad, ref["grad_ad"], atol=1e-4)
+
+
+def test_build_aux_rank_gid_equal_jax(step_case):
+    """scatter_-derived rank/gid equal the JAX one-hot einsum's, exactly."""
+    ref, pt = step_case
+    aux = eops.build_aux(pt["scn"])
+    for got, want in zip((aux.up_rank, aux.up_gid, aux.dn_rank, aux.dn_gid),
+                         ref["rank"]):
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+
+
+def test_own_gain_from_slab_equals_scenario_own_gain(step_case):
+    """The step reads each user's own-AP gain from the cross-gain slab at
+    its serving AP; that equals the Scenario's own gains bit for bit."""
+    _, pt = step_case
+    scn = pt["scn"]
+    aux = eops.build_aux(scn)
+    for h_r, own in ((aux.h_up_r, scn.own_gain_up()),
+                     (aux.h_dn_r, scn.own_gain_dn())):
+        assert torch.equal(eref.own_gain_t(h_r, aux.onehot),
+                           own.transpose(-1, -2))
+
+
+def test_era_step_batched_equals_per_cell(J):
+    """A leading cell axis B=4 gives each lane its single-cell answer."""
+    cfg = J.net.small_config(n_users=8, n_subchannels=4)
+    jscns = [J.net.make_scenario(J.jax.random.PRNGKey(40 + i), cfg)
+             for i in range(4)]
+    scns = [pb.scenario(s) for s in jscns]
+    prof = pb.profile(J.prof.get_profile("nin"))
+    ja = pb.allocation(_alloc(J, 8, 4, seed=7, lead=(4,)))
+    q = torch.full((4, 8), 0.4)
+    s = torch.full((4, 8), 2, dtype=torch.int64)
+    w = era.Weights()
+    g_b, grad_b = eops.era_step_value_and_grad(
+        network.stack_scenarios(scns), prof, s, q, ja, w)
+    assert g_b.shape == (4,)
+    for b in range(4):
+        g1, grad1 = eops.era_step_value_and_grad(
+            scns[b], prof, s[b], q[b], era.Allocation(*(x[b] for x in ja)),
+            w)
+        np.testing.assert_allclose(float(g_b[b]), float(g1), rtol=1e-6)
+        pb.assert_leaves_close([x[b] for x in grad_b], grad1, atol=1e-6)
+
+
+def test_sic_mask_semantics():
+    """mask[i, j] = same group AND decoded later; empty rows sum to an
+    EXACT 0.0 (the relu-tie invariant the backward depends on)."""
+    rank = torch.tensor([[0, 1, 2, 3]], dtype=torch.int32)
+    gid = torch.tensor([[0, 0, 2, 2]], dtype=torch.int32)
+    mask = eref._sic_mask(rank, gid)
+    want = np.asarray([[[0, 1, 0, 0], [0, 0, 0, 0],
+                        [0, 0, 0, 1], [0, 0, 0, 0]]], np.float32)
+    np.testing.assert_array_equal(mask.numpy(), want)
+    x = torch.tensor([[1.0, 2.0, 3.0, 4.0]])
+    out = eref._suffix_apply(mask, x).numpy()
+    np.testing.assert_array_equal(out, [[2.0, 0.0, 4.0, 0.0]])
+    # adjoint identity: <Ax, y> == <x, A^T y>
+    y = torch.tensor([[0.5, -1.0, 2.0, 0.25]])
+    lhs = float(torch.sum(eref._suffix_apply(mask, x) * y))
+    rhs = float(torch.sum(x * eref._suffix_transpose(mask, y)))
+    assert abs(lhs - rhs) < 1e-6
+
+
+def test_era_step_wrapper_checks_operands():
+    cfg = network.small_config(n_users=8, n_subchannels=4)
+    scn = network.make_scenario(torch.Generator().manual_seed(0), cfg, "cpu")
+    prof = profiles.get_profile("nin", "cpu")
+    alloc = era.uniform_alloc(scn)
+    ops = eops._operands(scn, prof, torch.zeros(8, dtype=torch.int64),
+                         torch.full((8,), 0.4), alloc,
+                         eops.build_aux(scn), era.Weights())
+    ops = [x[None] for x in ops]
+    before = era_step_fused.launches
+    out = era_step_fused(*ops)                 # CPU: the plain version
+    g, grads = eref.fused_step_math(*ops)
+    torch.testing.assert_close(out[0], g, rtol=0, atol=0)
+    assert era_step_fused.launches == before   # counts kernel launches only
+    bad = list(ops)
+    bad[14] = bad[14].to(torch.float32)           # up_rank
+    with pytest.raises(ValueError, match="dtype"):
+        era_step_fused(*bad)
+    bad = list(ops)
+    bad[1] = bad[1].transpose(-1, -2)
+    with pytest.raises(ValueError, match="shape"):
+        era_step_fused(*bad)
+    bad[1] = ops[1].transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous"):
+        era_step_fused(*bad)
+    with pytest.raises(ValueError, match="operands"):
+        era_step_fused(*ops[:17])
+
+
+@pytest.fixture(scope="module")
+def rate_case(J):
+    cfg = J.net.small_config(n_users=12, n_subchannels=6)
+    jscn = J.net.make_scenario(J.jax.random.PRNGKey(5), cfg)
+    ja = _alloc(J, 12, 6, seed=5)
+    return (J.noma.uplink_rates(jscn, ja.beta_up, ja.p),
+            pb.scenario(jscn), pb.allocation(ja))
+
+
+def test_plain_noma_rate_matches_jax_ref(J):
+    rng = np.random.default_rng(0)
+    u = 10
+    contrib = rng.exponential(size=(3, u)).astype(np.float32)
+    sig = rng.exponential(size=(3, u)).astype(np.float32)
+    inter = rng.exponential(size=(3, u)).astype(np.float32) + 0.1
+    gend = np.asarray([[3, 3, 3, 3, 6, 6, 6, 9, 9, 9]] * 3, np.int32)
+    want = J.nref.noma_rate_ref(contrib, sig, gend, inter, 2.5)
+    got = nref.noma_rate_ref(*(torch.as_tensor(x) for x in
+                               (contrib, sig, gend, inter)), 2.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_uplink_rates_kernel_matches_jax_core(rate_case):
+    want, scn, alloc = rate_case
+    got = nops.uplink_rates_kernel(scn, alloc.beta_up, alloc.p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
+    # and the port's own autograd path, which the downlink keeps
+    np.testing.assert_allclose(
+        noma.uplink_rates(scn, alloc.beta_up, alloc.p).numpy(),
+        got.numpy(), rtol=1e-5)
+
+
+def test_noma_rate_wrapper_checks_operands(rate_case):
+    _, scn, alloc = rate_case
+    args = list(nops.sorted_operands(scn, alloc.beta_up, alloc.p))
+    before = noma_rate.launches
+    torch.testing.assert_close(noma_rate(*args), nref.noma_rate_ref(*args))
+    assert noma_rate.launches == before
+    bad = list(args)
+    bad[2] = bad[2].to(torch.int64)
+    with pytest.raises(ValueError, match="dtype"):
+        noma_rate(*bad)
+
+
+# ------------------------------------------------------------ on a card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u,m,b", [(12, 6, 1), (37, 9, 3), (300, 16, 2)])
+def test_era_step_kernel_matches_plain(cuda_device, u, m, b):
+    cfg = network.small_config(n_users=u, n_subchannels=m)
+    scns = [network.make_scenario(torch.Generator().manual_seed(i), cfg,
+                                  cuda_device) for i in range(b)]
+    scn = network.stack_scenarios(scns)
+    prof = profiles.get_profile("yolov2", cuda_device)
+    alloc = era.uniform_alloc(scn, torch.Generator().manual_seed(9))
+    s = torch.full((b, u), 5, dtype=torch.int64, device=cuda_device)
+    q = torch.full((b, u), 0.3, device=cuda_device)
+    ops = eops._operands(scn, prof, s, q, alloc, eops.build_aux(scn),
+                         era.Weights())
+    before = era_step_fused.launches
+    out = era_step_fused(*ops)
+    torch.cuda.synchronize()
+    assert era_step_fused.launches == before + 1
+    g, grads = eref.fused_step_math(*ops)
+    torch.testing.assert_close(out[0], g, rtol=1e-5, atol=0)
+    pb.assert_leaves_close([x.cpu() for x in out[1:]],
+                           [x.cpu() for x in grads], atol=1e-4)
+    again = era_step_fused(*ops)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u,m,b", [(12, 6, 1), (300, 16, 2)])
+def test_noma_rate_kernel_matches_plain(cuda_device, u, m, b):
+    cfg = network.small_config(n_users=u, n_subchannels=m)
+    scn = network.stack_scenarios(
+        [network.make_scenario(torch.Generator().manual_seed(i), cfg,
+                               cuda_device) for i in range(b)])
+    alloc = era.uniform_alloc(scn, torch.Generator().manual_seed(3))
+    args = nops.sorted_operands(scn, alloc.beta_up, alloc.p)
+    before = noma_rate.launches
+    got = noma_rate(*args)
+    assert noma_rate.launches == before + 1
+    want = nref.noma_rate_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 *
+                               float(want.abs().max()))
+    torch.testing.assert_close(
+        nops.uplink_rates_kernel(scn, alloc.beta_up, alloc.p),
+        noma.uplink_rates(scn, alloc.beta_up, alloc.p), rtol=1e-5, atol=0)
