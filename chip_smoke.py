@@ -19,6 +19,23 @@ each with its timings:
                 serving the yolov2 profile: start, submit, observe a
                 drifted channel, one admission round; both kernels must
                 have been launched in this phase
+  7. flash_attention  the attention kernel against its plain version and
+                against ``scaled_dot_product_attention`` (the library
+                yardstick) at recurrentgemma-2b's local-attention shape
+                (B=2, S=4096, H=10, K=1, D=256, window 2048, bf16), at the
+                model path's shape (B=16, S=512, the same heads), and in
+                float32 at S=512; each bf16 case is held against the plain
+                version in bf16 and in float32
+  8. rglru_scan  the RG-LRU scan kernel against its plain sequential
+                version at the model path's shape (B=16, L=512, D=2560)
+  9. model path  recurrentgemma-2b at full width and depth in bf16, served
+                by a ``SplitInferenceCluster`` of two cells: start, then
+                ``serve_round(decode_steps=8)``; both model kernels must
+                have been launched in that call, every user served, and a
+                split group's device + edge logits must equal the fused
+                forward, and the fused (kernel) logits of its rows must
+                agree with a plain forward (naive attention, the plain
+                sequential scan) on the card
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -50,6 +67,17 @@ F32_FLOPS_S = 67e12
 ERA_ELEMENTWISE_OPS = 50
 # per (channel, user) of noma_rate: add, divide, add, log2, multiply
 NOMA_ELEMENTWISE_OPS = 5
+# H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, 700 W)
+BF16_FLOPS_S = 989e12
+# one bf16 ulp of the output (2^-7 of it; rounding alone is at most half)
+# plus a small absolute term for float32 summation order near zero
+BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-4
+# the model path's serving round (phase 9)
+SERVE_USERS, SERVE_SEQ, DECODE_STEPS = 16, 512, 8
+# bf16 logits of the full model, kernels against the plain path, as a
+# share of max |logit|: each attention layer's output may differ by about
+# a bf16 ulp (the plain path rounds probabilities to bf16 before P·V)
+PLAIN_LOGIT_TOL = 2e-2
 
 
 def log(phase, **fields):
@@ -96,9 +124,9 @@ def in_group_pairs(assoc, n_aps):
     return (counts * (counts - 1) // 2).sum(dim=1).double()
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, peak_flops_s=F32_FLOPS_S):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_ops / F32_FLOPS_S * 1e3
+    t_ops = n_ops / peak_flops_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -126,15 +154,29 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
     from repro_torch.core import era, ligd, network, profiles
     from repro_torch.kernels import _build
     from repro_torch.kernels.era_step import ops as era_ops
     from repro_torch.kernels.era_step import ref as era_ref
     from repro_torch.kernels.era_step.kernel import era_step_fused
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
     from repro_torch.kernels.noma_rate.kernel import noma_rate
     from repro_torch.kernels.noma_rate.ops import sorted_operands
     from repro_torch.kernels.noma_rate.ref import noma_rate_ref
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan
     from repro_torch.launch import platform
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import transformer
+    from repro_torch.serving import split_runtime
     from repro_torch.serving.cluster import SplitInferenceCluster
 
     t_all = time.perf_counter()
@@ -314,6 +356,273 @@ def main():
         round_ms_per_step=f"{t_round / max(round_launches, 1) * 1e3:.3f}",
         versions=f"{v_boot}->{cluster.schedule_version}",
         launches=json.dumps(launches).replace(" ", ""))
+
+    # ---- 7. flash_attention --------------------------------------------
+    def attn_inputs(b, s_len, h, kh, d, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, s_len, h, d), (b, s_len, kh, d),
+                              (b, s_len, kh, d))]
+
+    def folded(q, k, v):
+        """The kernel's (B·H, S, D) operands, folded once outside the
+        timed calls."""
+        fold = lambda x: x.transpose(1, 2).reshape(
+            -1, x.shape[1], x.shape[3]).contiguous()
+        return fold(q), fold(k), fold(v)
+
+    def attn_check(q, k, v, window, tol):
+        """The kernel against its plain version on the same inputs, within
+        ``tol`` absolute plus relative; bf16 inputs are also held against
+        the plain version in float32 within one bf16 ulp of the output
+        (the kernel's math is float32 and only its output is rounded).
+        Returns the kernel's output, its max abs difference from the plain
+        version, that version's max |o|, and the float32 difference."""
+        out_k = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        out_p = fa_ref.attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        diff = (out_k.float() - out_p.float()).abs()
+        if not bool((diff <= tol + tol * out_p.float().abs()).all()):
+            raise AssertionError(f"flash_attention kernel disagrees with its "
+                                 f"plain version: max abs err "
+                                 f"{float(diff.max())}, tolerance {tol}")
+        err32 = None
+        if q.dtype == torch.bfloat16:
+            out_32 = fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                          causal=True, window=window)
+            d32 = (out_k.float() - out_32).abs()
+            if not bool((d32 <= BF16_ULP_ATOL
+                         + BF16_ULP_RTOL * out_32.abs()).all()):
+                raise AssertionError(
+                    f"flash_attention kernel (bf16) is more than one bf16 "
+                    f"ulp from its plain version in float32: max abs err "
+                    f"{float(d32.max())}")
+            err32 = float(d32.max())
+            del out_32, d32
+        return out_k, float(diff.max()), float(out_p.float().abs().max()), \
+            err32
+
+    # recurrentgemma-2b's local attention: H=10, K=1, D=256, window 2048
+    b, s_len, h, kh, d, win = 2, 4096, 10, 1, 256, 2048
+    q, k, v = attn_inputs(b, s_len, h, kh, d, torch.bfloat16, SEED + 300)
+    out_k, fa_err, fa_max, fa_err32 = attn_check(q, k, v, win, 2e-2)
+    pos = torch.arange(s_len, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - out_k.float())
+                     .abs().max())
+    fq, fk, fv = folded(q, k, v)
+    k_ms = cuda_ms(lambda: flash_attention_bhsd(fq, fk, fv, causal=True,
+                                                window=win), reps=20)
+    ops_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True,
+                                                    window=win), reps=20)
+    p_ms = cuda_ms(lambda: fa_ref.attention_ref(q, k, v, causal=True,
+                                                window=win), reps=3, warm=1)
+    lib_ms = cuda_ms(sdpa, reps=20)
+    pairs = b * h * sum(min(i + 1, win) for i in range(s_len))
+    n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, out_k))
+    bnd, by = bound_ms(n_bytes, 4.0 * d * pairs, BF16_FLOPS_S)
+    del out_k, qt, kt, vt, fq, fk, fv
+    # the model path's shape: 16 users x 512 tokens, window 2048 (bf16)
+    q, k, v = attn_inputs(SERVE_USERS, SERVE_SEQ, h, kh, d, torch.bfloat16,
+                          SEED + 302)
+    _, fa_err_main, fa_max_main, fa_err32_main = attn_check(q, k, v, win,
+                                                            2e-2)
+    qm, km, vm = folded(q, k, v)
+    main_ms = cuda_ms(lambda: flash_attention_bhsd(qm, km, vm, causal=True,
+                                                   window=win), reps=20)
+    del q, k, v, qm, km, vm
+    # float32 at S=512, a window that binds
+    q32, k32, v32 = attn_inputs(2, 512, h, kh, d, torch.float32, SEED + 301)
+    _, fa_err32_s512, _, _ = attn_check(q32, k32, v32, 128, 2e-5)
+    del q32, k32, v32
+    log("flash_attention", shape=f"B{b}xS{s_len}xH{h}xK{kh}xD{d}",
+        window=win, dtype="bf16", tol="2e-2_abs+rel",
+        max_abs_err=f"{fa_err:.3e}", kernel_ms=f"{k_ms:.4f}",
+        with_layout_ms=f"{ops_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        sdpa_ms=f"{lib_ms:.4f}", sdpa_max_abs_diff=f"{sdpa_err:.3e}",
+        f32_plain_tol=f"{BF16_ULP_RTOL:.4g}_rel+{BF16_ULP_ATOL:g}_abs",
+        f32_plain_max_abs_err=f"{fa_err32:.3e}",
+        bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
+        GFLOP=f"{4.0 * d * pairs / 1e9:.1f}",
+        main_path_shape=f"B{SERVE_USERS}xS{SERVE_SEQ}",
+        main_path_max_abs_err=f"{fa_err_main:.3e}",
+        main_path_f32_plain_max_abs_err=f"{fa_err32_main:.3e}",
+        main_path_ms=f"{main_ms:.4f}",
+        f32_S512_window128_max_abs_err=f"{fa_err32_s512:.3e}",
+        f32_tol="2e-5")
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:102",
+        max_abs_err=max(fa_err, fa_err_main),
+        max_scaled_err=max(fa_err / fa_max, fa_err_main / fa_max_main),
+        ms=k_ms, plain_ms=p_ms,
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms))
+
+    # ---- 8. rglru_scan at the model path's shape --------------------------
+    g = torch.Generator(device=dev).manual_seed(SEED + 400)
+    shape = (SERVE_USERS, SERVE_SEQ, 2560)
+    a_s = torch.empty(shape, device=dev).uniform_(0.7, 0.999, generator=g)
+    b_s = torch.randn(shape, generator=g, device=dev) * 0.1
+    h_k = rglru_scan(a_s, b_s)
+    h_p = scan_ref.linear_scan_sequential(a_s, b_s)
+    torch.cuda.synchronize()
+    scan_err = scaled_err(h_k, h_p)
+    if not scan_err <= 1e-5:
+        raise AssertionError(f"rglru_scan kernel disagrees with its plain "
+                             f"version: scaled err {scan_err}")
+    k_ms = cuda_ms(lambda: rglru_scan(a_s, b_s), reps=50)
+    p_ms = cuda_ms(lambda: scan_ref.linear_scan_sequential(a_s, b_s), reps=3,
+                   warm=1)
+    n_bytes = 3 * a_s.numel() * a_s.element_size()
+    bnd, by = bound_ms(n_bytes, 2.0 * a_s.numel())
+    log("rglru_scan", shape="B{}xL{}xD{}".format(*shape), tol="1e-5_of_max",
+        scaled_err=f"{scan_err:.3e}", bit_identical=torch.equal(h_k, h_p),
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}")
+    kernels.append(dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/kernel.py:47",
+        max_abs_err=float((h_k - h_p).abs().max()), max_scaled_err=scan_err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    del a_s, b_s, h_k, h_p
+
+    # ---- 9. the model path -------------------------------------------------
+    # Users and tokens are cut (16 x 512) because the LM head materialises
+    # (rows, S, 256000) float32 logits, as the JAX package does: 8.4 GB for
+    # one split group of 16 users, and again for the decode prefill.  Width
+    # and depth are the published ones; weights are random from SEED.
+    mcfg = configs.get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    model = transformer.init(torch.Generator().manual_seed(SEED), mcfg, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ncfg = network.small_config(n_users=SERVE_USERS, n_subchannels=8)
+    mscns = [network.make_scenario(
+        torch.Generator().manual_seed(SEED + 500 + i), ncfg, dev)
+        for i in range(2)]
+    mprof = profiles.transformer_profile(mcfg, seq=SERVE_SEQ, device=dev)
+    mcluster = SplitInferenceCluster(
+        model, mcfg, mprof,
+        spec=ligd.SolverSpec(backend="chunked", per_user_split=True))
+    ids = [mcluster.add_cell(x) for x in mscns]
+    t0 = time.perf_counter()
+    mcluster.start(threaded=False)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    tokens = torch.randint(0, mcfg.vocab_size,
+                           (2, SERVE_USERS, SERVE_SEQ), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED + 600)
+                           ).numpy()
+    by_cell = {c: tokens[i] for i, c in enumerate(ids)}
+    flash_attention_bhsd.launches = 0
+    rglru_scan.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches["flash_attention"] = flash_attention_bhsd.launches
+    launches["rglru_scan"] = rglru_scan.launches
+    for name in ("flash_attention", "rglru_scan"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the model path")
+    if sorted(out) != sorted(ids):
+        raise AssertionError(f"served cells {sorted(out)}, expected {ids}")
+    for cid, res in out.items():
+        if [r.user for r in res] != list(range(SERVE_USERS)):
+            raise AssertionError(f"cell {cid}: users {[r.user for r in res]}")
+        for r in res:
+            if r.tokens_out.shape != (DECODE_STEPS,) or not (
+                    0 <= r.tokens_out.min()
+                    and r.tokens_out.max() < mcfg.vocab_size):
+                raise AssertionError(f"cell {cid} user {r.user}: tokens "
+                                     f"{r.tokens_out}")
+            if r.latency_s != (r.t_device + r.t_uplink + r.t_edge
+                               + r.t_downlink) or not r.latency_s > 0:
+                raise AssertionError(f"cell {cid} user {r.user}: latency "
+                                     f"{r.latency_s} is not its parts' sum")
+    groups = {int(c): {s_: len(u) for s_, u in
+                       mcluster.installed_schedule(c).groups().items()}
+              for c in ids}
+    # split == fused for one split group (and mid-depth when that group
+    # is edge- or device-only), up to 4 of its users
+    split, users = next(iter(mcluster.installed_schedule(ids[0])
+                             .groups().items()))
+    rows = torch.as_tensor(tokens[0][users[:4]], device=dev)
+    fused, _ = transformer.forward(model, mcfg, rows, impl="kernel")
+    if not bool(torch.isfinite(fused).all()):
+        raise AssertionError("fused logits are not finite")
+    split_errs = {}
+    for s_ in [split] + ([mcfg.n_layers // 2]
+                         if split in (0, mcfg.n_layers) else []):
+        x, pos_ = split_runtime.device_forward(model, mcfg, rows, s_,
+                                               impl="kernel")
+        lg = split_runtime.edge_forward(model, mcfg, x, pos_, s_,
+                                        impl="kernel")
+        split_errs[s_] = float((lg - fused).abs().max() / fused.abs().max())
+        if not split_errs[s_] <= 1e-2:
+            raise AssertionError(f"split {s_}: device+edge logits differ "
+                                 f"from the fused forward by "
+                                 f"{split_errs[s_]} of max |logit|")
+        del x, lg
+    # the same rows through the plain path: naive attention and the plain
+    # sequential scan, with neither kernel launched
+    kernel_scan = rglru_mod.linear_scan
+    rglru_mod.linear_scan = scan_ref.linear_scan_sequential
+    n_fa, n_scan = flash_attention_bhsd.launches, rglru_scan.launches
+    try:
+        plain, _ = transformer.forward(model, mcfg, rows, impl="naive")
+    finally:
+        rglru_mod.linear_scan = kernel_scan
+    if (flash_attention_bhsd.launches, rglru_scan.launches) != (n_fa, n_scan):
+        raise AssertionError("the plain forward launched a kernel")
+    plain_err = float((plain - fused).abs().max() / plain.abs().max())
+    if not plain_err <= PLAIN_LOGIT_TOL:
+        raise AssertionError(f"kernel logits differ from the plain path's by "
+                             f"{plain_err} of max |logit|, tolerance "
+                             f"{PLAIN_LOGIT_TOL}")
+    del fused, plain
+    # where the round's device time goes: a second, profiled round
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    # kernel rows only: an operator's row repeats its kernels' time
+    events = [e for e in trace.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    mcluster.stop()
+    n_tokens = 2 * SERVE_USERS * DECODE_STEPS
+    log("model_path", model=mcfg.name, params=transformer.param_count(model),
+        d_model=mcfg.d_model, layers=mcfg.n_layers, vocab=mcfg.vocab_size,
+        dtype=mcfg.dtype, cells=2, users=SERVE_USERS, seq=SERVE_SEQ,
+        decode_steps=DECODE_STEPS, init_s=f"{t_init:.3f}",
+        start_s=f"{t_start:.3f}", serve_round_s=f"{t_serve:.3f}",
+        tokens_per_s=f"{n_tokens / t_serve:.1f}", peak_GiB=f"{peak_gib:.2f}",
+        split_groups=json.dumps(groups).replace(" ", ""),
+        split_vs_fused=json.dumps(split_errs).replace(" ", ""),
+        kernel_vs_plain=f"{plain_err:.3e}", kernel_vs_plain_tol=PLAIN_LOGIT_TOL,
+        launches=json.dumps({n: launches[n] for n in
+                             ("flash_attention", "rglru_scan")}
+                            ).replace(" ", ""))
+    log("model_path_profile", round_s=f"{t_prof:.3f}",
+        device_busy_s=f"{busy_s:.3f}",
+        device_busy_share=f"{busy_s / t_prof:.3f}",
+        top_kernels_ms=json.dumps(
+            {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+             for e in top}))
+    del model, mcluster
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -8,8 +8,9 @@ Split semantics (s ∈ {0..F}):
   else   -> uplink carries out_bits[s-1] (output of layer s)
 
 The paper's own CNN benchmarks (NiN / tiny-YOLOv2 / VGG16) are built from
-published layer shapes.  Transformer profiles, which derive from the model
-configurations, arrive with the served-model slice of the port.
+published layer shapes; transformer profiles derive analytically from a
+``ModelConfig`` (per-block FLOPs + residual-stream bits, plus recurrent
+state bits for rec/ssd blocks, one split point per block boundary).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.launch.platform import resolve_device
 
 
@@ -188,10 +190,89 @@ CNN_PROFILES = {
 }
 
 
-def get_profile(name: str, device=None) -> SplitProfile:
-    """A CNN profile by name, on ``device`` (default: the card)."""
-    if name not in CNN_PROFILES:
-        raise ValueError(f"unknown profile {name!r}; the port has the CNN "
-                         f"profiles {sorted(CNN_PROFILES)} (transformer "
-                         "profiles arrive with the served-model slice)")
-    return CNN_PROFILES[name](resolve_device(device))
+# --------------------------------------------------------------------------- #
+# transformer profiles from ModelConfig
+# --------------------------------------------------------------------------- #
+def block_flops(cfg, spec, seq):
+    """Analytic forward FLOPs of one block on ``seq`` tokens."""
+    mixer, ffn_kind = spec
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    fl = 0.0
+    if mixer in ("attn", "local"):
+        h, k = cfg.n_heads, cfg.n_kv_heads
+        fl += 2.0 * seq * d * (h + 2 * k) * hd          # qkv proj
+        ctx = min(seq, cfg.window) if mixer == "local" else seq
+        fl += 2.0 * 2.0 * seq * ctx * h * hd * 0.5      # scores+values, causal
+        fl += 2.0 * seq * h * hd * d                    # out proj
+    elif mixer == "rec":
+        dr = cfg.resolved_d_rnn
+        fl += 2.0 * seq * d * dr * 3                    # rec/gate/out proj
+        fl += 2.0 * seq * dr * dr * 2                   # gates
+        fl += seq * dr * cfg.conv_width * 2
+    elif mixer == "ssd":
+        di, n, hh = cfg.d_inner, cfg.d_state, cfg.n_ssd_heads
+        p = cfg.ssd_head_dim
+        fl += 2.0 * seq * d * (2 * di + 2 * n + hh)     # in proj
+        fl += 2.0 * seq * di * d                        # out proj
+        q = min(cfg.ssd_chunk, seq)
+        fl += 2.0 * seq * q * n + 2.0 * seq * q * hh * p  # intra-chunk
+        fl += 4.0 * seq * hh * p * n                    # states in/out
+    if ffn_kind == "dense":
+        mult = 3 if cfg.activation in ("silu", "geglu") else 2
+        fl += 2.0 * seq * d * cfg.d_ff * mult
+    elif ffn_kind == "moe":
+        mult = 3 if cfg.activation in ("silu", "geglu") else 2
+        fl += 2.0 * seq * d * cfg.d_ff * mult * cfg.top_k
+        fl += 2.0 * seq * d * cfg.n_experts             # router
+    return fl
+
+
+def transformer_profile(cfg, seq=128, batch=1, act_bits=16,
+                        device=None) -> SplitProfile:
+    """Split profile for a per-user inference request of ``seq`` tokens,
+    on ``device`` (default: the card).
+
+    Each block boundary is a split point; the crossing tensor is the
+    residual stream (B,S,d) plus any recurrent state (rec: d_rnn; ssd:
+    H·P·N f32)."""
+    specs = cfg.layer_specs
+    flops_l = [batch * block_flops(cfg, sp, seq) for sp in specs]
+
+    stream_bits = batch * seq * cfg.d_model * act_bits
+    out_l = []
+    for mixer, _ in specs:
+        extra = 0.0
+        if mixer == "rec":
+            extra = batch * cfg.resolved_d_rnn * 32.0
+        elif mixer == "ssd":
+            extra = (batch * cfg.n_ssd_heads * cfg.ssd_head_dim
+                     * cfg.d_state * 32.0)
+        out_l.append(stream_bits + extra)
+
+    # endpoints: raw input = token ids (tiny) or patch/frame embeddings
+    if cfg.vision_tokens:
+        input_bits = batch * (cfg.vision_tokens * cfg.d_model * act_bits
+                              + seq * 32.0)
+    elif cfg.n_codebooks > 1:
+        input_bits = batch * seq * cfg.n_codebooks * 32.0
+    else:
+        input_bits = batch * seq * 32.0
+    result_bits = batch * cfg.n_codebooks * 32.0  # one sampled token (id)
+
+    dev = resolve_device(device)
+    return SplitProfile(
+        name=cfg.name,
+        layer_flops=torch.tensor(flops_l, dtype=torch.float32, device=dev),
+        out_bits=torch.tensor(out_l, dtype=torch.float32, device=dev),
+        input_bits=float(input_bits),
+        result_bits=float(result_bits),
+    )
+
+
+def get_profile(name: str, device=None, **kw) -> SplitProfile:
+    """A CNN profile, or a model configuration's transformer profile
+    (``kw``: ``transformer_profile``'s seq / batch / act_bits), by name,
+    on ``device`` (default: the card)."""
+    if name in CNN_PROFILES:
+        return CNN_PROFILES[name](resolve_device(device))
+    return transformer_profile(get_config(name), device=device, **kw)

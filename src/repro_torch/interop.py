@@ -1,11 +1,11 @@
 """Carry the JAX package's state into the port.
 
-The system has no model weights: the state two implementations must share
-is the channel ``Scenario`` (its seven array fields plus the 15 ``CellEnv``
-leaves), the ``SplitProfile`` tables, an ``Allocation`` and the
-``Weights``.  Each function here takes that state as numpy arrays and plain
-Python values — what ``np.asarray`` gives on the JAX side — and returns the
-port's object on ``device`` (default: the card).  Nothing here imports JAX.
+The state two implementations must share is the channel ``Scenario`` (its
+seven array fields plus the 15 ``CellEnv`` leaves), the ``SplitProfile``
+tables, an ``Allocation``, the ``Weights``, and the served model's weights.
+Each function here takes that state as numpy arrays and plain Python
+values — what ``np.asarray`` gives on the JAX side — and returns the port's
+object on ``device`` (default: the card).  Nothing here imports JAX.
 
 A batched value (a leading cell axis B on every array, (B,) env leaves)
 converts the same way as a single cell.
@@ -16,12 +16,14 @@ from typing import Mapping, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.era import Allocation, Weights
 from repro_torch.core.network import (_SCN_FIELDS, CellEnv, NetworkConfig,
                                       Scenario)
 from repro_torch.core.profiles import SplitProfile
 from repro_torch.launch.platform import resolve_device
+from repro_torch.models.common import Params
 
 _INDEX_FIELDS = ("assoc", "up_order", "up_group_end", "dn_order",
                  "dn_group_end")
@@ -87,3 +89,46 @@ def weights_from_fields(fields: Mapping) -> Weights:
     """``Weights`` from its fields (``dataclasses.asdict`` on the JAX
     side)."""
     return Weights(**{k: float(v) for k, v in dict(fields).items()})
+
+
+def _tensor(x, dev):
+    """A numpy leaf as a tensor; bfloat16 leaves (ml_dtypes) keep their
+    bits."""
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.as_tensor(x, device=dev)
+
+
+def _params(tree: Mapping, dev) -> Params:
+    return Params(**{k: _params(v, dev) if isinstance(v, Mapping)
+                     else _tensor(v, dev) for k, v in tree.items()})
+
+
+def model_from_numpy(cfg, tree: Mapping, device=None) -> Params:
+    """The port's model (``models.transformer``'s layout) from the JAX
+    params pytree with numpy leaves: ``embed``, ``units`` (one subtree per
+    pattern position, leaves stacked on axis 0 over the scanned units),
+    ``tail``, ``final_norm`` and, untied, ``lm_head``.  Layer ``i`` is unit
+    ``i // len(pattern)`` at position ``i % len(pattern)``, or a tail
+    block past the units."""
+    dev = resolve_device(device)
+    layers = []
+    for i in range(cfg.n_layers):
+        u, pos = divmod(i, cfg.pattern_len)
+        if u < cfg.n_units:
+            sub = _index(tree["units"][pos], u)
+        else:
+            sub = tree["tail"][i - cfg.n_units * cfg.pattern_len]
+        layers.append(_params(sub, dev))
+    p = {"embed": _tensor(tree["embed"], dev), "layers": nn.ModuleList(layers),
+         "final_norm": _tensor(tree["final_norm"], dev)}
+    if "lm_head" in tree:
+        p["lm_head"] = _tensor(tree["lm_head"], dev)
+    return Params(**p)
+
+
+def _index(tree: Mapping, u: int) -> dict:
+    """Unit ``u`` of a subtree whose leaves are stacked on axis 0."""
+    return {k: _index(v, u) if isinstance(v, Mapping) else np.asarray(v)[u]
+            for k, v in tree.items()}

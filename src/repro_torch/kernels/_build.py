@@ -98,6 +98,13 @@ def library() -> ctypes.CDLL:
     # contrib, sig, key, inter, bw, out; B, M, U; the stream
     lib.noma_rate_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.noma_rate_launch.restype = i32
+    # q, k, v, o; BH, group, S, T, D, causal, window, dtype; scale; stream
+    lib.flash_attention_launch.argtypes = ([ptr] * 4 + [i32] * 8
+                                           + [ctypes.c_float, ptr])
+    lib.flash_attention_launch.restype = i32
+    # a, b, h; B, L, D; the stream
+    lib.rglru_scan_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.rglru_scan_launch.restype = i32
     return lib
 
 

@@ -18,12 +18,18 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``device=None`` means the CUDA card; raises when none is present.
     An explicit device (``"cpu"``, ``"cuda:1"``, a ``torch.device``) is
-    taken as given, and a CUDA one is still checked for a card."""
+    taken as given, and a CUDA one is still checked for a card.  A CUDA
+    device comes back indexed (``"cuda"`` is the current card,
+    ``cuda:<n>``), as tensors report theirs, so devices compare equal
+    with ``==``."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' explicitly to "
-            "run on the host")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' explicitly "
+                "to run on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,0 +1,222 @@
+"""Causal attention: GQA/MQA, RoPE / M-RoPE, global + sliding-window, with a
+naive path (tests), two chunked paths (long prefill without an S×S
+buffer), the hand-written flash-attention kernel, and a ring-buffer
+KV-cache decode step.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.common import (Params, apply_mrope, apply_rope,
+                                       dense_init, dtype_of)
+
+NEG_INF = -2.0e38
+IMPLS = ("naive", "chunked", "chunked_tri", "kernel")
+
+
+def init(generator, cfg, device):
+    d, h, k = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    dt = dtype_of(cfg)
+    p = {
+        "wq": dense_init(generator, (d, h, hd), dt, device),
+        "wk": dense_init(generator, (d, k, hd), dt, device),
+        "wv": dense_init(generator, (d, k, hd), dt, device),
+        "wo": dense_init(generator, (h, hd, d), dt, device,
+                         in_axis_size=h * hd),
+    }
+    if cfg.attn_qkv_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((k, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((k, hd), dtype=dt, device=device)
+    return Params(**p)
+
+
+def _rope(cfg, x, positions):
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _project_qkv(params, cfg, x, positions):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied."""
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
+    if cfg.attn_qkv_bias:
+        q = q + params.bq
+        k = k + params.bk
+        v = v + params.bv
+    return _rope(cfg, q, positions), _rope(cfg, k, positions), v
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q (B,S,H,hd), k/v (B,T,H,hd) (kv already head-expanded), mask
+    broadcastable to (B,1,S,T).  Scores in float32, softmax, probabilities
+    back in q's dtype."""
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _expand_kv(k, n_heads):
+    """(B,T,K,hd) -> (B,T,H,hd) by repeating each kv head H//K times."""
+    reps = n_heads // k.shape[2]
+    return k.repeat_interleave(reps, dim=2) if reps > 1 else k
+
+
+def _attend(q, k, v, window, scale, impl, q_chunk):
+    b, s, h, hd = q.shape
+    if impl == "kernel":
+        return fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                      scale=scale)
+    if impl == "naive" or s <= q_chunk:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(s, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        return _sdpa(q, _expand_kv(k, h), _expand_kv(v, h), mask[None, None],
+                     scale)
+    if impl == "chunked":
+        return _chunked_forward(q, k, v, window, scale, q_chunk)
+    if impl == "chunked_tri":
+        return _chunked_tri_forward(q, k, v, window, scale, q_chunk)
+    raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _chunked_tri_forward(q, k, v, window, scale, q_chunk):
+    """Triangular chunked attention: a loop over query chunks with key
+    slices k[:, :(i+1)·qc], so the causal upper triangle is never
+    computed."""
+    b, s, h, hd = q.shape
+    qc = min(q_chunk, s)
+    if s % qc:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {qc}")
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    outs = []
+    for i in range(s // qc):
+        hi = (i + 1) * qc
+        s0 = max(0, hi - min(s, window + qc)) if window else 0
+        qpos = i * qc + torch.arange(qc, device=q.device)[:, None]
+        kpos = s0 + torch.arange(hi - s0, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        outs.append(_sdpa(q[:, i * qc:hi], k[:, s0:hi], v[:, s0:hi],
+                          mask[None, None], scale))
+    return torch.cat(outs, dim=1)
+
+
+def _chunked_forward(q, k, v, window, scale, q_chunk):
+    """Loop over query chunks.  Local attention slices a (window + qc) key
+    band so compute is O(S·W); global attention scores each chunk against
+    the full key range and masks."""
+    b, s, h, hd = q.shape
+    qc = min(q_chunk, s)
+    if s % qc:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {qc}")
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    band = s if not window else min(s, window + qc)
+    outs = []
+    for i in range(s // qc):
+        q0 = i * qc
+        qpos = q0 + torch.arange(qc, device=q.device)[:, None]
+        if window:
+            s0 = min(max(q0 + qc - band, 0), s - band)
+            k_i, v_i = k[:, s0:s0 + band], v[:, s0:s0 + band]
+            kpos = s0 + torch.arange(band, device=q.device)[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - window)
+        else:
+            k_i, v_i = k, v
+            mask = torch.arange(s, device=q.device)[None, :] <= qpos
+        outs.append(_sdpa(q[:, q0:q0 + qc], k_i, v_i, mask[None, None], scale))
+    return torch.cat(outs, dim=1)
+
+
+def forward(params, cfg, x, positions, mixer="attn", impl="kernel",
+            q_chunk=1024):
+    """Full-sequence causal attention (training / prefill).
+
+    mixer: "attn" (global) or "local" (sliding window of cfg.window).
+    impl:  "naive" (S×S scores — small inputs / tests)
+           "chunked" / "chunked_tri" (loops over query chunks)
+           "kernel" (the default: the hand-written flash-attention kernel
+           on a CUDA tensor, its plain version on a CPU one; JAX's
+           "pallas")
+    """
+    y, _, _ = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk)
+    return y
+
+
+def _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk):
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    window = cfg.window if mixer == "local" else 0
+    out = _attend(q, k, v, window, scale, impl, q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo), k, v
+
+
+def prefill(params, cfg, x, positions, max_seq, mixer="attn", impl="kernel",
+            q_chunk=1024):
+    """Forward + ring-buffer cache capture for subsequent decode."""
+    b, s, _ = x.shape
+    y, k, v = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk)
+    size = min(max_seq, cfg.window) if mixer == "local" else max_seq
+    n_keep = min(s, size)
+    p0 = s - n_keep + torch.arange(n_keep, device=x.device)  # kept positions
+    slots = p0 % size
+    cache = init_cache(cfg, b, max_seq, mixer=mixer, dtype=k.dtype,
+                       device=x.device)
+    cache["k"][:, slots] = k[:, -n_keep:]
+    cache["v"][:, slots] = v[:, -n_keep:]
+    cache["pos"][slots] = p0
+    return y, cache
+
+
+# --------------------------------------------------------------------------- #
+# decode with ring-buffer KV cache
+# --------------------------------------------------------------------------- #
+def init_cache(cfg, batch, max_seq, mixer="attn", dtype=None, *, device):
+    """Ring-buffer cache. Local mixers only keep ``window`` keys."""
+    dt = dtype or dtype_of(cfg)
+    size = min(max_seq, cfg.window) if mixer == "local" else max_seq
+    kd, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, size, kd, hd), dtype=dt, device=device),
+        "v": torch.zeros((batch, size, kd, hd), dtype=dt, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int64, device=device),
+    }
+
+
+def decode_step(params, cfg, x, pos, cache, mixer="attn"):
+    """x (B,1,D); pos: the token's absolute position (an int).  Returns
+    (y, cache); the cache is updated in place (the decode loop owns it)."""
+    b = x.shape[0]
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    pos = int(pos)
+    shape = (b, 3, 1) if cfg.mrope_sections is not None else (b, 1)
+    positions = torch.full(shape, pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+
+    size = cache["k"].shape[1]
+    idx = pos % size
+    cache["k"][:, idx] = k_new[:, 0]
+    cache["v"][:, idx] = v_new[:, 0]
+    cache["pos"][idx] = pos
+
+    cpos = cache["pos"]
+    window = cfg.window if mixer == "local" else 0
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window:
+        valid &= cpos > pos - window
+    out = _sdpa(q, _expand_kv(cache["k"], cfg.n_heads),
+                _expand_kv(cache["v"], cfg.n_heads),
+                valid[None, None, None, :], scale)
+    return torch.einsum("bshk,hkd->bsd", out, params.wo), cache

@@ -1,0 +1,125 @@
+"""Residual block = (mixer, ffn) pair behind pre-norms, dispatched on the
+layer spec.  Three entry points per block: ``forward`` (full sequence),
+``prefill`` (forward + cache capture), ``decode`` (single token against a
+cache).
+
+The "ssd" mixer (Mamba-2) and the "moe" FFN are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention, rglru
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import Params, dtype_of, rms_norm
+
+_NOT_PORTED = {
+    "ssd": "the 'ssd' mixer (models/ssm.py and the ssd kernel) is not "
+           "ported yet: it waits for the 'Mamba-2' item of ROADMAP.md's "
+           "queue of modules to port",
+    "moe": "the 'moe' FFN (models/moe.py) is not ported yet: it waits for "
+           "the 'MoE' item of ROADMAP.md's queue of modules to port",
+}
+
+
+def _check_spec(spec):
+    for part in spec:
+        if part in _NOT_PORTED:
+            raise NotImplementedError(_NOT_PORTED[part])
+
+
+def init(generator, cfg, spec, device):
+    _check_spec(spec)
+    mixer, ffn_kind = spec
+    dt = dtype_of(cfg)
+    norm = (lambda: torch.zeros((cfg.d_model,), dtype=dt, device=device)) \
+        if cfg.gemma_style else \
+        (lambda: torch.ones((cfg.d_model,), dtype=dt, device=device))
+    p = {"norm1": norm()}
+    if mixer in ("attn", "local"):
+        p["mixer"] = attention.init(generator, cfg, device)
+    elif mixer == "rec":
+        p["mixer"] = rglru.init(generator, cfg, device)
+    else:
+        raise ValueError(mixer)
+    if ffn_kind != "none":
+        p["norm2"] = norm()
+        p["ffn"] = ffn_mod.init(generator, cfg, device)
+    return Params(**p)
+
+
+def _norm(cfg, x, w):
+    return rms_norm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_style)
+
+
+def _apply_ffn(params, cfg, spec, x):
+    """Returns (y, aux); aux is the MoE balance loss, 0 for dense FFNs."""
+    _, ffn_kind = spec
+    if ffn_kind == "none":
+        return x, 0.0
+    h = _norm(cfg, x, params.norm2)
+    return x + ffn_mod.forward(params.ffn, cfg, h), 0.0
+
+
+def forward(params, cfg, spec, x, positions, impl="kernel"):
+    """(x, positions) -> (x, aux). Full sequence, no cache capture.
+    ``impl`` picks the attention path (``attention.IMPLS``); the
+    recurrent mixer has one path (``rglru``'s docstring)."""
+    _check_spec(spec)
+    mixer, _ = spec
+    h = _norm(cfg, x, params.norm1)
+    if mixer in ("attn", "local"):
+        y = attention.forward(params.mixer, cfg, h, positions, mixer=mixer,
+                              impl=impl)
+    elif mixer == "rec":
+        y, _ = rglru.forward(params.mixer, cfg, h)
+    else:
+        raise ValueError(mixer)
+    return _apply_ffn(params, cfg, spec, x + y)
+
+
+# --------------------------------------------------------------------------- #
+# caches
+# --------------------------------------------------------------------------- #
+def init_cache(cfg, spec, batch, max_seq, dtype=None, *, device):
+    _check_spec(spec)
+    mixer, _ = spec
+    if mixer in ("attn", "local"):
+        return attention.init_cache(cfg, batch, max_seq, mixer=mixer,
+                                    dtype=dtype, device=device)
+    if mixer == "rec":
+        return rglru.init_cache(cfg, batch, dtype=dtype, device=device)
+    raise ValueError(mixer)
+
+
+def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel"):
+    """Like forward, but also returns the decode cache."""
+    _check_spec(spec)
+    mixer, _ = spec
+    h = _norm(cfg, x, params.norm1)
+    if mixer in ("attn", "local"):
+        y, cache = attention.prefill(params.mixer, cfg, h, positions,
+                                     max_seq, mixer=mixer, impl=impl)
+    elif mixer == "rec":
+        y, cache = rglru.prefill(params.mixer, cfg, h)
+    else:
+        raise ValueError(mixer)
+    x, aux = _apply_ffn(params, cfg, spec, x + y)
+    return x, cache, aux
+
+
+def decode(params, cfg, spec, x, pos, cache):
+    """Single-token step. x (B,1,D); pos: the absolute position (int)."""
+    _check_spec(spec)
+    mixer, _ = spec
+    h = _norm(cfg, x, params.norm1)
+    if mixer in ("attn", "local"):
+        y, cache = attention.decode_step(params.mixer, cfg, h, pos, cache,
+                                         mixer=mixer)
+    elif mixer == "rec":
+        y, cache = rglru.decode_step(params.mixer, cfg, h, cache)
+    else:
+        raise ValueError(mixer)
+    x, _ = _apply_ffn(params, cfg, spec, x + y)
+    return x, cache

@@ -1,5 +1,5 @@
 """``SplitInferenceCluster`` — the serving facade with first-class cell
-lifecycle, solver-only in this slice of the port.
+lifecycle.
 
   * HOW solves run lives in ONE frozen ``SolverSpec`` (``core.ligd``);
   * WHO is being served lives behind stable ``CellId`` handles: the
@@ -9,13 +9,14 @@ lifecycle, solver-only in this slice of the port.
 
 Lifecycle::
 
-    cluster = SplitInferenceCluster(None, None, prof, spec=SolverSpec())
+    cluster = SplitInferenceCluster(model, cfg, prof, spec=SolverSpec())
     a = cluster.add_cell(scn_a, q0=0.4)        # before start: staged
     b = cluster.add_cell(scn_b, q0=0.4)
     cluster.start(threaded=False)              # bootstrap solve + install
     cluster.submit(a, user=3, q_s=0.25)        # arrivals by CellId
     cluster.observe(b, drifted_scn)            # drift marks by CellId
     cluster.step()                             # one admission round
+    out = cluster.serve_round({a: toks_a, b: toks_b}, decode_steps=8)
     c = cluster.add_cell(scn_c, q0=0.4)        # mid-run join: 1-lane solve
     cluster.remove_cell(a)                     # leave: no solve
     cluster.stop()
@@ -27,16 +28,16 @@ piece of admission state follows the lane remap keyed by ``CellId``.
 
 Devices: the cluster runs on ``device`` (default: the card; raises when
 none is present).  Profiles move there at construction, and a scenario
-given on another device moves there when it is added or observed.
+given on another device moves there when it is added or observed.  A
+served model must already lie on that device.  ``model``/``model_cfg``
+may be None for solver-only use (scheduling without executing a model);
+``serve_round`` then raises.
 
 Threading: ``start(threaded=True)`` runs admission rounds on the
 controller's background solver thread; ``threaded=False`` is the
 deterministic sync mode (drive rounds with ``step()``).  Churn takes the
 controller's round lock BEFORE the facade lock, so waiting out an
 in-flight background solve never stalls producers.
-
-Executing a served model (``serve_round``) arrives with the model slice
-of the port.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ from repro_torch.core.era import Weights
 from repro_torch.core.ligd import SolverSpec
 from repro_torch.launch.platform import resolve_device
 from repro_torch.serving.admission import AdmissionController, AdmissionRound
-from repro_torch.serving.engine import MultiCellServeEngine
+from repro_torch.serving.engine import MultiCellServeEngine, RequestResult
 from repro_torch.serving.scheduler import MultiCellScheduler, Schedule
 
 # Stable handle for one cell, valid across join/leave for the cluster
@@ -62,10 +63,12 @@ CellId = NewType("CellId", int)
 class SplitInferenceCluster:
     """One object owning the whole serving stack for a fleet of cells.
 
-    ``params``/``model_cfg`` must be None in this slice (solver-only
-    scheduling); ``prof`` is one shared ``SplitProfile`` or a per-cell
-    list.  ``bus``/``governor`` are duck-typed hooks (an event sink with
-    ``emit(name, **fields)`` and a QoS governor), default None."""
+    ``params`` is the served model (``models.transformer.init`` or
+    ``interop.model_from_numpy``) with its ``model_cfg``, or None for
+    solver-only scheduling; ``prof`` is one shared ``SplitProfile`` or a
+    per-cell list.  ``bus``/``governor`` are duck-typed hooks (an event
+    sink with ``emit(name, **fields)`` and a QoS governor), default
+    None."""
 
     def __init__(self, params, model_cfg, prof, *,
                  spec: SolverSpec = None,
@@ -77,12 +80,10 @@ class SplitInferenceCluster:
                  clock: Callable[[], float] = time.monotonic,
                  default_q_s: float = 0.4,
                  bus=None, governor=None, device=None):
-        if params is not None:
-            raise NotImplementedError(
-                "model execution is not ported yet (the served-model slice "
-                "of ROADMAP.md); build the cluster solver-only with "
-                "params=None")
         self.device = resolve_device(device)
+        if params is not None and params.embed.device != self.device:
+            raise ValueError(f"the model lies on {params.embed.device}, the "
+                             f"cluster runs on {self.device}")
         self.params = params
         self.model_cfg = model_cfg
         self.prof = ([p.to(self.device) for p in prof]
@@ -319,12 +320,39 @@ class SplitInferenceCluster:
         self._require_started()
         return self.controller.paused()
 
-    def serve_round(self, tokens_by_cell, *, decode_steps: int = 0):
-        """Execute a round of the served model on the installed schedules
-        — not ported yet."""
-        raise NotImplementedError(
-            "serve_round executes the served model, which arrives with the "
-            "model slice of the port (ROADMAP.md)")
+    def serve_round(self, tokens_by_cell, *, decode_steps: int = 0
+                    ) -> Dict[CellId, List[RequestResult]]:
+        """Execute one round on the INSTALLED schedules (no solve).
+
+        ``tokens_by_cell``: {CellId: (U, S) integers} covering every live
+        cell, or a (B, U, S) array in lane order.  Results come back keyed
+        by CellId.  The CellId list and the engine's snapshot are captured
+        under one facade-lock acquisition, so a concurrent churn op can
+        never pair this round's ids with a differently-shaped schedule
+        set; the round then executes outside the lock."""
+        self._require_started()
+        with self._lock:
+            ids = list(self._ids)
+            ss, scns, profs = self.engine.round_snapshot()
+        if ss is None:
+            raise RuntimeError("no schedules installed yet")
+        if isinstance(tokens_by_cell, dict):
+            missing = [c for c in ids if c not in tokens_by_cell]
+            if missing:
+                raise ValueError(f"missing tokens for cells {missing}")
+            tokens = [tokens_by_cell[c] for c in ids]
+        else:
+            tokens = tokens_by_cell
+            if len(tokens) != len(ids):
+                raise ValueError(f"need tokens for {len(ids)} cells, "
+                                 f"got {len(tokens)}")
+        rounds = self.engine.serve_snapshot(ss, scns, profs, tokens,
+                                            decode_steps=decode_steps)
+        if self.bus is not None:
+            self.bus.emit("serve_round", version=ss.version,
+                          n_cells=len(ids),
+                          n_users=sum(len(r) for r in rounds))
+        return {cid: res for cid, res in zip(ids, rounds)}
 
     # ---- per-cell state, keyed by CellId -------------------------------
     def posted_q(self, cell_id: CellId) -> np.ndarray:

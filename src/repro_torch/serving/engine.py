@@ -1,12 +1,32 @@
-"""The schedule store of the multi-cell serving engine.
+"""Split-serving engine: executes scheduled requests end to end.
 
-``MultiCellServeEngine`` keeps the installed per-cell ``Schedule``s as one
-immutable, versioned ``ScheduleSet``, swapped as a single reference under
-a lock: a reader sees the whole previous round's schedules or the whole
-new one, never a mix.  The admission loop installs and swaps schedules;
-the cluster facade snapshots them.  Executing a served model on the
-schedules arrives with the model slice of the port: until then the engine
-is solver-only and takes ``params=None``.
+Pipeline per admission round:
+  1. scheduler -> per-user (split, channel, power, r) assignments
+  2. users are grouped by split point; each group's device-side prefix runs
+     on its users' tokens, the crossing activations are "transmitted" over
+     the simulated NOMA link (latency = bits / scheduled rate), and the edge
+     side runs as one batched forward per group
+  3. decode continues on the edge with the shared KV/state caches
+
+The radio and edge-compute times are simulated from the schedule and the
+split profile; the numerical path (device prefix -> crossing tensor ->
+edge suffix) is the real model on the model's device.
+
+The model runs with ``impl="kernel"``, the model stack's default:
+attention through the hand-written flash-attention kernel and the RG-LRU
+recurrence through the hand-written scan kernel on a CUDA model, their
+plain versions on a CPU one.  This is the one deliberate difference from
+the JAX package, whose serving path takes ``impl="naive"`` because its
+Pallas kernels compile only for a TPU.
+
+``SplitServeEngine`` serves one cell; ``MultiCellServeEngine`` serves B
+cells whose schedules come from ONE batched solve and keeps the installed
+per-cell ``Schedule``s as one immutable, versioned ``ScheduleSet``,
+swapped as a single reference under a lock: a reader sees the whole
+previous round's schedules or the whole new one, never a mix.  The
+admission loop installs and swaps schedules; the cluster facade snapshots
+them.  Built with ``params=None`` the engine is a solver-only schedule
+store and must not execute rounds.
 """
 from __future__ import annotations
 
@@ -15,7 +35,111 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.serving.scheduler import MultiCellScheduler, Schedule
+import numpy as np
+import torch
+
+from repro_torch.core.era import lam
+from repro_torch.models import transformer as T
+from repro_torch.serving import split_runtime
+from repro_torch.serving.scheduler import (EraScheduler, MultiCellScheduler,
+                                           Schedule)
+
+
+@dataclass
+class RequestResult:
+    user: int
+    tokens_out: np.ndarray
+    latency_s: float
+    t_device: float
+    t_uplink: float
+    t_edge: float
+    t_downlink: float
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
+                     tokens_per_user, *, decode_steps=0
+                     ) -> List[RequestResult]:
+    """Run one cell's scheduled admission round (steps 2–3 above).
+    ``tokens_per_user``: (U, S) integers (numpy or a tensor), one request
+    per user."""
+    dev = params.embed.device
+    tokens = torch.as_tensor(tokens_per_user).to(dev)
+    dev_flops = prof.device_flops.tolist()
+    edge_flops = prof.edge_flops.tolist()
+    results: Dict[int, RequestResult] = {}
+
+    for split, users in sched.groups().items():
+        toks = tokens[torch.as_tensor(users, device=dev)]
+        x, positions = split_runtime.device_forward(params, cfg, toks, split)
+        crossing_bits = float(x[0].numel()) * x.element_size() * 8
+        logits = split_runtime.edge_forward(params, cfg, x, positions, split)
+        next_tok = _np(torch.argmax(logits[:, -1], -1))
+        del x, logits
+
+        dev_fl = float(dev_flops[split])
+        edge_fl = float(edge_flops[split])
+        for row, u in enumerate(users):
+            r_up = max(float(sched.uplink_rate[u]), 1.0)
+            r_dn = max(float(sched.downlink_rate[u]), 1.0)
+            t_dev = dev_fl / netcfg.c_device_flops
+            t_up = (crossing_bits / r_up) if split < prof.n_layers \
+                else 0.0
+            eff = lam(float(sched.compute_units[u]), netcfg) \
+                * netcfg.c_min_flops
+            t_edge = edge_fl / eff
+            t_dn = (float(prof.result_bits) / r_dn) \
+                if split < prof.n_layers else 0.0
+            results[int(u)] = RequestResult(
+                user=int(u),
+                tokens_out=next_tok[row:row + 1],
+                latency_s=t_dev + t_up + t_edge + t_dn,
+                t_device=t_dev, t_uplink=t_up,
+                t_edge=t_edge, t_downlink=t_dn,
+            )
+
+    if decode_steps:
+        _continue_decode(params, cfg, tokens, results, decode_steps)
+    return [results[u] for u in sorted(results)]
+
+
+def _continue_decode(params, cfg, tokens, results, n_steps):
+    """Greedy decode continuation on the edge (full model, cached)."""
+    # sequence length is the LAST axis — multi-codebook models carry
+    # (U, n_codebooks, S) tokens, where shape[1] would be n_codebooks
+    s = tokens.shape[-1]
+    logits, caches, _ = T.prefill(params, cfg, tokens,
+                                  max_seq=s + n_steps + 1)
+    cur = torch.argmax(logits[:, -1], -1)
+    del logits
+    outs = [cur]
+    for step in range(n_steps - 1):
+        logits, caches = T.decode_step(params, cfg, cur, s + step, caches)
+        cur = torch.argmax(logits, -1)
+        outs.append(cur)
+    seq = _np(torch.stack(outs, 1))
+    for u, r in results.items():
+        r.tokens_out = seq[u]
+
+
+class SplitServeEngine:
+    def __init__(self, params, cfg, scn, prof, scheduler: EraScheduler):
+        self.params = params
+        self.cfg = cfg
+        self.scn = scn
+        self.prof = prof
+        self.scheduler = scheduler
+
+    def serve_round(self, tokens_per_user, q_thresholds, *,
+                    decode_steps=0) -> List[RequestResult]:
+        """tokens_per_user: (U, S) integers (each user one request)."""
+        sched = self.scheduler.schedule(q_thresholds)
+        return execute_schedule(self.params, self.cfg, self.scn.cfg,
+                                self.prof, sched, tokens_per_user,
+                                decode_steps=decode_steps)
 
 
 @dataclass(frozen=True)
@@ -26,20 +150,19 @@ class ScheduleSet:
 
 
 class MultiCellServeEngine:
-    """Versioned schedule store for B cells.
+    """Serves B cells per round: one batched schedule, per-cell execution,
+    on the same model (``params=None``: a solver-only schedule store).
 
-    ``bus`` is an optional duck-typed event sink (anything with
-    ``emit(name, **fields)``); every install/swap/resize records its
+    ``serve_round`` is lockstep (solve, install, execute);
+    ``serve_scheduled_round`` executes the installed ``ScheduleSet``
+    without touching the solver, while the admission loop installs fresh
+    schedules concurrently.  ``bus`` is an optional duck-typed event sink
+    (anything with ``emit(name, **fields)``); every install/swap/resize records its
     version's install time, and the first ``round_snapshot`` of a version
     emits ``swap_to_serve`` with the lag."""
 
     def __init__(self, params, cfg, scns, scheduler: MultiCellScheduler,
                  *, bus=None, clock=time.monotonic):
-        if params is not None:
-            raise NotImplementedError(
-                "model execution is not ported yet (the served-model slice "
-                "of ROADMAP.md); build the engine solver-only with "
-                "params=None")
         self.params = params
         self.cfg = cfg
         self.scns = list(scns)
@@ -177,3 +300,34 @@ class MultiCellServeEngine:
         re-solved by the admission loop, not here)."""
         with self._lock:
             self.scns[cell] = scn
+
+    # ---- serving -------------------------------------------------------
+    def serve_snapshot(self, ss: ScheduleSet, scns, profs,
+                       tokens_per_cell, *, decode_steps=0
+                       ) -> List[List[RequestResult]]:
+        """Execute one round on an explicit ``round_snapshot`` triple."""
+        if self.params is None:
+            raise RuntimeError("this engine is a solver-only schedule store "
+                               "(params=None): it has no model to serve")
+        return [execute_schedule(self.params, self.cfg, scns[b].cfg, profs[b],
+                                 sched, tokens_per_cell[b],
+                                 decode_steps=decode_steps)
+                for b, sched in enumerate(ss.schedules)]
+
+    def serve_scheduled_round(self, tokens_per_cell, *, decode_steps=0
+                              ) -> List[List[RequestResult]]:
+        """Execute one round with the installed schedules — no solve."""
+        ss, scns, profs = self.round_snapshot()
+        if ss is None:
+            raise RuntimeError("no schedules installed yet "
+                               "(bootstrap with install_schedules)")
+        return self.serve_snapshot(ss, scns, profs, tokens_per_cell,
+                                   decode_steps=decode_steps)
+
+    def serve_round(self, tokens_per_cell, q_per_cell, *,
+                    decode_steps=0) -> List[List[RequestResult]]:
+        """Lockstep solve -> install -> execute.
+        tokens_per_cell: (B, U, S) integers; q_per_cell: (B, U) seconds."""
+        self.install_schedules(self.scheduler.schedule(q_per_cell))
+        return self.serve_scheduled_round(tokens_per_cell,
+                                          decode_steps=decode_steps)

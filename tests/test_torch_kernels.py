@@ -17,11 +17,36 @@ from repro_torch.core import era, network, noma, profiles
 from repro_torch.kernels.era_step import ops as eops
 from repro_torch.kernels.era_step import ref as eref
 from repro_torch.kernels.era_step.kernel import era_step_fused
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro_torch.kernels.noma_rate import ops as nops
 from repro_torch.kernels.noma_rate import ref as nref
 from repro_torch.kernels.noma_rate.kernel import noma_rate
+from repro_torch.kernels.rglru_scan import ops as sops
+from repro_torch.kernels.rglru_scan import ref as sref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan
 
 SIZES = [(12, 6), (8, 4)]
+# the JAX package's FLASH_CASES (tests/test_kernels.py):
+# b, s, h, kh, d, window, dtype
+FLASH_CASES = [
+    (2, 256, 4, 2, 64, 0, "float32"),
+    (1, 512, 8, 8, 128, 0, "float32"),
+    (2, 256, 4, 1, 64, 128, "float32"),
+    (1, 384, 6, 2, 64, 0, "float32"),
+    (1, 256, 4, 2, 128, 64, "bfloat16"),
+]
+# recurrentgemma-2b's local attention shape (H=10, K=1, D=256) at card-test
+# lengths, a window that binds, ragged S, and f32 at D=256
+FLASH_CARD_CASES = FLASH_CASES + [
+    (2, 512, 10, 1, 256, 128, "bfloat16"),
+    (1, 300, 10, 1, 256, 64, "float32"),
+    (2, 333, 4, 2, 128, 0, "bfloat16"),
+]
+# the JAX package's rglru sweep shapes (tests/test_online_and_rglru_kernel.py)
+SCAN_CASES = [(2, 64, 128), (1, 256, 256), (3, 128, 384)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 @pytest.fixture(scope="module")
@@ -34,9 +59,12 @@ def J():
     from repro.core import noma as jnoma
     from repro.core import profiles as jprof
     from repro.kernels.era_step import ops as jeops
+    from repro.kernels.flash_attention import ref as jfref
     from repro.kernels.noma_rate import ref as jnref
+    from repro.kernels.rglru_scan import ref as jsref
     return SimpleNamespace(jax=jax, jnp=jnp, era=jera, net=jnet,
-                           noma=jnoma, prof=jprof, eops=jeops, nref=jnref)
+                           noma=jnoma, prof=jprof, eops=jeops, nref=jnref,
+                           fref=jfref, sref=jsref)
 
 
 def _alloc(J, u, m, seed, lead=()):
@@ -284,3 +312,122 @@ def test_noma_rate_kernel_matches_plain(cuda_device, u, m, b):
     torch.testing.assert_close(
         nops.uplink_rates_kernel(scn, alloc.beta_up, alloc.p),
         noma.uplink_rates(scn, alloc.beta_up, alloc.p), rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------------ flash attention
+def _flash_inputs(b, s, h, kh, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, s, kh, d)).astype(np.float32),
+            rng.standard_normal((b, s, kh, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,window,dtype", FLASH_CASES)
+def test_attention_ref_matches_jax_oracle(J, b, s, h, kh, d, window, dtype):
+    """The plain version against the JAX oracle on the same (rounded)
+    inputs; bf16 takes the same bits on both sides."""
+    qkv = _flash_inputs(b, s, h, kh, d)
+    jdt = getattr(J.jnp, dtype)
+    want = J.fref.attention_ref(*(J.jnp.asarray(x, jdt) for x in qkv),
+                                causal=True, window=window)
+    got = fref.attention_ref(*(torch.as_tensor(x).to(getattr(torch, dtype))
+                               for x in qkv), causal=True, window=window)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_wrapper_folds_gqa_and_checks_operands():
+    """On the CPU the wrapper gives the plain version in the kernel's
+    (B·H, S, D) layout, q row i reading kv row i // group, and launches
+    nothing; malformed operands raise."""
+    b, s, h, kh, d = 2, 40, 4, 2, 64
+    q, k, v = (torch.as_tensor(x) for x in _flash_inputs(b, s, h, kh, d))
+    before = flash_attention_bhsd.launches
+    got = fops.flash_attention(q, k, v, causal=True, window=16)
+    assert flash_attention_bhsd.launches == before
+    torch.testing.assert_close(
+        got, fref.attention_ref(q, k, v, causal=True, window=16))
+    fold = lambda x: x.transpose(1, 2).reshape(-1, s, d).contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bhsd(fold(q)[..., :32].contiguous(),
+                             fold(k)[..., :32].contiguous(),
+                             fold(v)[..., :32].contiguous())
+    with pytest.raises(ValueError, match="group"):
+        flash_attention_bhsd(fold(q)[:3].contiguous(), fold(k), fold(v))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bhsd(fold(q).transpose(1, 2).contiguous()
+                             .transpose(1, 2), fold(k), fold(v))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_bhsd(fold(q).double(), fold(k).double(),
+                             fold(v).double())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_bhsd(fold(q), fold(k).to(torch.bfloat16), fold(v))
+
+
+# ------------------------------------------------------------ rglru scan
+def _scan_inputs(bt, l, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.7, 0.999, (bt, l, d)).astype(np.float32),
+            (rng.standard_normal((bt, l, d)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("bt,l,d", SCAN_CASES)
+def test_linear_scan_matches_jax_sequential(J, bt, l, d):
+    a, b = _scan_inputs(bt, l, d)
+    want = np.asarray(J.sref.linear_scan_sequential(a, b))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    before = rglru_scan.launches
+    got = sops.linear_scan(ta, tb)
+    assert rglru_scan.launches == before
+    for h in (got, sref.linear_scan_associative(ta, tb)):
+        np.testing.assert_allclose(h.numpy() / np.abs(want).max(),
+                                   want / np.abs(want).max(), atol=1e-5)
+    np.testing.assert_array_equal(
+        sref.linear_scan_sequential(ta, tb, h0=torch.zeros(bt, d)).numpy(),
+        got.numpy())
+
+
+def test_rglru_wrapper_checks_operands():
+    a, b = (torch.as_tensor(x) for x in _scan_inputs(2, 8, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        rglru_scan(a.double(), b.double())
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan(a, b[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(ValueError, match="B, L, D"):
+        rglru_scan(a[0], b[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,window,dtype", FLASH_CARD_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, s, h, kh, d,
+                                              window, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(x).to(cuda_device, dt)
+               for x in _flash_inputs(b, s, h, kh, d, seed=s))
+    before = flash_attention_bhsd.launches
+    got = fops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = fref.attention_ref(q, k, v, causal=True, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,d",
+                         SCAN_CASES + [(16, 512, 2560), (2, 37, 300)])
+def test_rglru_scan_kernel_matches_plain(cuda_device, bt, l, d):
+    a, b = (torch.as_tensor(x).to(cuda_device)
+            for x in _scan_inputs(bt, l, d, seed=l))
+    before = rglru_scan.launches
+    got = sops.linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    want = sref.linear_scan_sequential(a, b)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -1,7 +1,8 @@
-"""The port's solver-only serving path (``repro_torch.serving``) against the
-JAX package's on the CPU: ``build_schedule`` on one outcome, and the
+"""The port's serving path (``repro_torch.serving``) against the JAX
+package's on the CPU: ``build_schedule`` on one outcome, the
 ``SplitInferenceCluster`` lifecycle of ``examples/cluster_quickstart.py``
-run side by side on the same converted scenarios."""
+run side by side on the same converted scenarios, and served rounds of a
+tiny model whose weights cross over through ``interop.model_from_numpy``."""
 import dataclasses
 
 import jax
@@ -14,13 +15,21 @@ import port_bridge as pb
 from repro.core import era as jera
 from repro.core import ligd as jligd
 from repro.core import network as jnet
+from repro.configs import get_tiny_config as jtiny
 from repro.core import profiles as jprof
+from repro.models import transformer as JT
+from repro.serving import engine as jengine
 from repro.serving import scheduler as jsched
 from repro.serving.cluster import SplitInferenceCluster as JCluster
-from repro_torch.core import era, ligd, network
+from repro_torch import interop
+from repro_torch.configs import get_tiny_config
+from repro_torch.core import era, ligd, network, profiles
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+from repro_torch.models import transformer as T
 from repro_torch.serving import scheduler
 from repro_torch.serving.cluster import SplitInferenceCluster
-from repro_torch.serving.engine import MultiCellServeEngine
+from repro_torch.serving.engine import MultiCellServeEngine, SplitServeEngine
 
 U, M = 12, 6
 SPEC = dict(tol=0.0, max_steps=40, per_user_split=True)
@@ -156,8 +165,6 @@ def test_engine_schedule_store():
     cfg = network.small_config(n_users=4, n_subchannels=2)
     scns = [network.make_scenario(torch.Generator().manual_seed(i), cfg,
                                   "cpu") for i in range(2)]
-    with pytest.raises(NotImplementedError):
-        MultiCellServeEngine(object(), None, scns, None)
     eng = MultiCellServeEngine(None, None, scns, None)
     s0, s1, s2 = (object() for _ in range(3))
     assert eng.schedule_version == 0
@@ -170,14 +177,145 @@ def test_engine_schedule_store():
         eng.swap_schedules({4: s0})
 
 
-def test_cluster_is_solver_only():
-    from repro_torch.core import profiles
-    prof = profiles.get_profile("nin", "cpu")
-    with pytest.raises(NotImplementedError):
-        SplitInferenceCluster(object(), None, prof, device="cpu")
-    cl = SplitInferenceCluster(None, None, prof, device="cpu")
-    with pytest.raises(NotImplementedError):
-        cl.serve_round({})
+def _tiny_model(name, seed=0):
+    """A tiny float32 model on both sides, carrying the same weights."""
+    jcfg = jtiny(name).replace(dtype="float32")
+    cfg = get_tiny_config(name).replace(dtype="float32")
+    jparams = JT.init(jax.random.PRNGKey(seed), jcfg)
+    model = interop.model_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    return jcfg, cfg, jparams, model
+
+
+def _assert_result(r, steps):
+    np.testing.assert_allclose(
+        r.latency_s, r.t_device + r.t_uplink + r.t_edge + r.t_downlink,
+        rtol=1e-6)
+    assert r.latency_s > 0
+    assert r.tokens_out.shape == (steps,)
+
+
+def test_cluster_with_model_serves_round_on_cpu():
+    """A cluster built with a model serves every user of every cell on the
+    installed schedules, through both kernels' CPU dispatch, and rejects
+    a model on another device than its own."""
+    _, cfg, _, model = _tiny_model("recurrentgemma-2b")
+    prof = profiles.transformer_profile(cfg, seq=16, device="cpu")
+    ncfg = network.small_config(n_users=6, n_subchannels=3)
+    cl = SplitInferenceCluster(model, cfg, prof, clock=FakeClock(),
+                               spec=ligd.SolverSpec(**SPEC), device="cpu")
+    ids = [cl.add_cell(network.make_scenario(
+        torch.Generator().manual_seed(i), ncfg, "cpu")) for i in range(2)]
+    cl.start(threaded=False)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 6, 16)).astype(np.int32)
+    flash0, scan0 = flash_attention_bhsd.launches, rglru_scan.launches
+    out = cl.serve_round({c: toks[i] for i, c in enumerate(ids)},
+                         decode_steps=3)
+    # CPU tensors take the plain versions: nothing is launched
+    assert (flash_attention_bhsd.launches, rglru_scan.launches) \
+        == (flash0, scan0)
+    assert sorted(out) == sorted(ids)
+    for cid in ids:
+        assert [r.user for r in out[cid]] == list(range(6))
+        for r in out[cid]:
+            _assert_result(r, 3)
+            assert 0 <= r.tokens_out.min() and \
+                r.tokens_out.max() < cfg.vocab_size
+    by_lane = cl.serve_round(toks, decode_steps=3)
+    for cid in ids:
+        for r, q in zip(by_lane[cid], out[cid]):
+            np.testing.assert_array_equal(r.tokens_out, q.tokens_out)
+    with pytest.raises(ValueError, match="missing tokens"):
+        cl.serve_round({ids[0]: toks[0]})
+    cl.stop()
+    with pytest.raises(ValueError, match="lies on"):
+        SplitInferenceCluster(model, cfg, prof, device="meta")
+    solver_only = SplitInferenceCluster(None, None, prof, device="cpu")
+    solver_only.add_cell(network.make_scenario(
+        torch.Generator().manual_seed(0), ncfg, "cpu"))
+    solver_only.start(threaded=False)
+    with pytest.raises(RuntimeError, match="solver-only"):
+        solver_only.serve_round(toks[:1])
+
+
+def test_split_serve_engine_matches_jax():
+    """The one-cell engine: solve then execute, equal to JAX's."""
+    jcfg, cfg, jparams, model = _tiny_model("llama3-8b")
+    jscn = _jscn(30)
+    spec = dict(SPEC, per_user_split=False)
+    jp = jprof.transformer_profile(jcfg, seq=12)
+    prof = profiles.transformer_profile(cfg, seq=12, device="cpu")
+    jeng = jengine.SplitServeEngine(
+        jparams, jcfg, jscn, jp, jsched.EraScheduler(
+            jscn, jp, spec=jligd.SolverSpec(step_impl="fused", **spec)))
+    scn = pb.scenario(jscn)
+    eng = SplitServeEngine(model, cfg, scn, prof, scheduler.EraScheduler(
+        scn, prof, spec=ligd.SolverSpec(**spec)))
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (U, 12)).astype(np.int32)
+    q = np.full(U, 0.05, np.float32)
+    want = jeng.serve_round(toks, q, decode_steps=2)
+    got = eng.serve_round(toks, q, decode_steps=2)
+    assert [r.user for r in got] == [r.user for r in want] == list(range(U))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens_out, w.tokens_out)
+        np.testing.assert_allclose(g.latency_s, w.latency_s, rtol=1e-5)
+        _assert_result(g, 2)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "recurrentgemma-2b"])
+def test_multicell_serve_round_matches_jax(name):
+    """One lockstep ``serve_round`` (solve, install, execute, decode 3
+    steps) on both engines: equal splits and tokens, latencies at rtol
+    1e-5."""
+    jcfg, cfg, jparams, model = _tiny_model(name)
+    s = 16
+    jp = jprof.transformer_profile(jcfg, seq=s)
+    prof = profiles.transformer_profile(cfg, seq=s, device="cpu")
+    jscns = [_jscn(20 + i) for i in range(2)]
+    jsch = jsched.MultiCellScheduler(
+        jscns, jp, spec=jligd.SolverSpec(step_impl="fused", **SPEC))
+    sch = scheduler.MultiCellScheduler(
+        [pb.scenario(x) for x in jscns], prof, spec=ligd.SolverSpec(**SPEC))
+    jeng = jengine.MultiCellServeEngine(jparams, jcfg, jscns, jsch)
+    eng = MultiCellServeEngine(model, cfg, sch.scns, sch)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, U, s)).astype(np.int32)
+    q = np.full((2, U), 0.05, np.float32)
+    want = jeng.serve_round(toks, q, decode_steps=3)
+    got = eng.serve_round(toks, q, decode_steps=3)
+    for b in range(2):
+        np.testing.assert_array_equal(
+            eng.current_schedules().schedules[b].split,
+            jeng.current_schedules().schedules[b].split)
+        for g, w in zip(got[b], want[b]):
+            assert g.user == w.user
+            np.testing.assert_array_equal(g.tokens_out, w.tokens_out)
+            for f in ("latency_s", "t_device", "t_uplink", "t_edge",
+                      "t_downlink"):
+                np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                           rtol=1e-5, err_msg=f)
+            _assert_result(g, 3)
+    # the solver sends every user of these cells edge-only (split 0); a
+    # schedule that spreads them over every split point exercises the
+    # device prefix, the crossing tensor and the uplink term
+    f = cfg.n_layers
+    mixed = [dataclasses.replace(x, split=np.arange(U) % (f + 1))
+             for x in jeng.current_schedules().schedules]
+    jeng.install_schedules(mixed)
+    eng.install_schedules([scheduler.Schedule(**vars(x)) for x in mixed])
+    for steps in (0, 2):
+        want = jeng.serve_scheduled_round(toks, decode_steps=steps)
+        got = eng.serve_scheduled_round(toks, decode_steps=steps)
+        for b in range(2):
+            for g, w in zip(got[b], want[b]):
+                np.testing.assert_array_equal(g.tokens_out, w.tokens_out)
+                np.testing.assert_allclose(g.latency_s, w.latency_s,
+                                           rtol=1e-5)
+                np.testing.assert_allclose(g.t_uplink, w.t_uplink,
+                                           rtol=1e-5)
+    assert {len(g) for g in mixed[0].groups().values()} != {U}
 
 
 def test_config_compatible_with_jax_dataclass():
