@@ -36,6 +36,23 @@ each with its timings:
                 forward, and the fused (kernel) logits of its rows must
                 agree with a plain forward (naive attention, the plain
                 sequential scan) on the card
+ 10. ssd        the SSD scan kernel against its plain chunked version at
+                the model path's shape (B=16, L=2048, H=48, P=64, N=128,
+                chunk 256, bf16 x/B/C, A = -(1..48)), in float32 at
+                (2, 512, 4, 64, 128, 256), and at a ragged L=2000 against
+                the plain sequential scan
+ 11. mamba2 path  mamba2-780m at full width and depth in bf16, served by
+                a ``SplitInferenceCluster`` of two cells with 2048-token
+                requests: the ssd kernel must have been launched in
+                ``serve_round``, every user served, device + edge logits
+                equal to the fused forward; for a group's rows against a
+                plain forward (``impl="naive"``: the plain chunked scan),
+                the bf16 logits within twice the spread between two plain
+                forwards (chunk 256 and 128), each block's kernel output
+                within 2e-2 of its plain output on the same input, and
+                the float32 model's logits within 2e-2 of max |logit|;
+                each bf16 path's distance from a plain forward whose SSD
+                runs in float64 is logged
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -45,10 +62,12 @@ line from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
 non-zero, and so does a machine without a card.
 """
+import copy
 import json
 import os
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -74,6 +93,13 @@ BF16_FLOPS_S = 989e12
 BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-4
 # the model path's serving round (phase 9)
 SERVE_USERS, SERVE_SEQ, DECODE_STEPS = 16, 512, 8
+# the mamba2 path's request length (phase 11): 8 chunks of its 256
+MAMBA_SEQ = 2048
+# phase 11's bf16 logits, kernel against the plain path, as a multiple of
+# the spread between two plain paths (chunk 256 and 128): at 48 layers
+# that spread is ~5e-2 of max |logit|, above PLAIN_LOGIT_TOL, which phase
+# 11 holds per block and for the float32 model instead
+MAMBA_SPREAD_FACTOR = 2.0
 # bf16 logits of the full model, kernels against the plain path, as a
 # share of max |logit|: each attention layer's output may differ by about
 # a bf16 ulp (the plain path rounds probabilities to bf16 before P·V)
@@ -173,8 +199,13 @@ def main():
     from repro_torch.kernels.noma_rate.ref import noma_rate_ref
     from repro_torch.kernels.rglru_scan import ref as scan_ref
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd.kernel import ssd_scan
     from repro_torch.launch import platform
+    from repro_torch.models import blocks
     from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer
     from repro_torch.serving import split_runtime
     from repro_torch.serving.cluster import SplitInferenceCluster
@@ -491,11 +522,74 @@ def main():
         ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
     del a_s, b_s, h_k, h_p
 
+    # ---- helpers of the model paths (phases 9 and 11) --------------------
+    def check_served(out, ids, mcfg):
+        """Every user of every cell served, tokens in range, each latency
+        the sum of its parts."""
+        if sorted(out) != sorted(ids):
+            raise AssertionError(f"served cells {sorted(out)}, expected "
+                                 f"{ids}")
+        for cid, res in out.items():
+            if [r.user for r in res] != list(range(SERVE_USERS)):
+                raise AssertionError(f"cell {cid}: users "
+                                     f"{[r.user for r in res]}")
+            for r in res:
+                if r.tokens_out.shape != (DECODE_STEPS,) or not (
+                        0 <= r.tokens_out.min()
+                        and r.tokens_out.max() < mcfg.vocab_size):
+                    raise AssertionError(f"cell {cid} user {r.user}: tokens "
+                                         f"{r.tokens_out}")
+                if r.latency_s != (r.t_device + r.t_uplink + r.t_edge
+                                   + r.t_downlink) or not r.latency_s > 0:
+                    raise AssertionError(f"cell {cid} user {r.user}: latency "
+                                         f"{r.latency_s} is not its parts' "
+                                         f"sum")
+
+    def check_split(model, mcfg, rows, split, fused):
+        """Device + edge logits against the fused forward at the group's
+        split (and mid-depth when that group is edge- or device-only): a
+        check of the split wiring.  Returns {split: error over max
+        |logit|}."""
+        if not bool(torch.isfinite(fused).all()):
+            raise AssertionError("fused logits are not finite")
+        errs = {}
+        for s_ in [split] + ([mcfg.n_layers // 2]
+                             if split in (0, mcfg.n_layers) else []):
+            x, pos_ = split_runtime.device_forward(model, mcfg, rows, s_,
+                                                   impl="kernel")
+            lg = split_runtime.edge_forward(model, mcfg, x, pos_, s_,
+                                            impl="kernel")
+            errs[s_] = float((lg - fused).abs().max() / fused.abs().max())
+            if not errs[s_] <= 1e-2:
+                raise AssertionError(f"split {s_}: device+edge logits differ "
+                                     f"from the fused forward by "
+                                     f"{errs[s_]} of max |logit|")
+            del x, lg
+        return errs
+
+    def profiled_round(cluster, by_cell):
+        """Where a round's device time goes: a second, profiled round.
+        Returns (wall s, device-busy s, the top eight kernel rows)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            t0 = time.perf_counter()
+            cluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+        # kernel rows only: an operator's row repeats its kernels' time
+        events = [e for e in trace.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e6
+        top = sorted(events, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:8]
+        return t_wall, busy, top
+
     # ---- 9. the model path -------------------------------------------------
     # Users and tokens are cut (16 x 512) because the LM head materialises
     # (rows, S, 256000) float32 logits, as the JAX package does: 8.4 GB for
     # one split group of 16 users, and again for the decode prefill.  Width
     # and depth are the published ones; weights are random from SEED.
+    t_phase = time.perf_counter()
     mcfg = configs.get_config("recurrentgemma-2b")
     t0 = time.perf_counter()
     model = transformer.init(torch.Generator().manual_seed(SEED), mcfg, dev)
@@ -533,21 +627,7 @@ def main():
     for name in ("flash_attention", "rglru_scan"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the model path")
-    if sorted(out) != sorted(ids):
-        raise AssertionError(f"served cells {sorted(out)}, expected {ids}")
-    for cid, res in out.items():
-        if [r.user for r in res] != list(range(SERVE_USERS)):
-            raise AssertionError(f"cell {cid}: users {[r.user for r in res]}")
-        for r in res:
-            if r.tokens_out.shape != (DECODE_STEPS,) or not (
-                    0 <= r.tokens_out.min()
-                    and r.tokens_out.max() < mcfg.vocab_size):
-                raise AssertionError(f"cell {cid} user {r.user}: tokens "
-                                     f"{r.tokens_out}")
-            if r.latency_s != (r.t_device + r.t_uplink + r.t_edge
-                               + r.t_downlink) or not r.latency_s > 0:
-                raise AssertionError(f"cell {cid} user {r.user}: latency "
-                                     f"{r.latency_s} is not its parts' sum")
+    check_served(out, ids, mcfg)
     groups = {int(c): {s_: len(u) for s_, u in
                        mcluster.installed_schedule(c).groups().items()}
               for c in ids}
@@ -557,21 +637,7 @@ def main():
                              .groups().items()))
     rows = torch.as_tensor(tokens[0][users[:4]], device=dev)
     fused, _ = transformer.forward(model, mcfg, rows, impl="kernel")
-    if not bool(torch.isfinite(fused).all()):
-        raise AssertionError("fused logits are not finite")
-    split_errs = {}
-    for s_ in [split] + ([mcfg.n_layers // 2]
-                         if split in (0, mcfg.n_layers) else []):
-        x, pos_ = split_runtime.device_forward(model, mcfg, rows, s_,
-                                               impl="kernel")
-        lg = split_runtime.edge_forward(model, mcfg, x, pos_, s_,
-                                        impl="kernel")
-        split_errs[s_] = float((lg - fused).abs().max() / fused.abs().max())
-        if not split_errs[s_] <= 1e-2:
-            raise AssertionError(f"split {s_}: device+edge logits differ "
-                                 f"from the fused forward by "
-                                 f"{split_errs[s_]} of max |logit|")
-        del x, lg
+    split_errs = check_split(model, mcfg, rows, split, fused)
     # the same rows through the plain path: naive attention and the plain
     # sequential scan, with neither kernel launched
     kernel_scan = rglru_mod.linear_scan
@@ -589,19 +655,7 @@ def main():
                              f"{plain_err} of max |logit|, tolerance "
                              f"{PLAIN_LOGIT_TOL}")
     del fused, plain
-    # where the round's device time goes: a second, profiled round
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as trace:
-        t0 = time.perf_counter()
-        mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
-        torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t0
-    # kernel rows only: an operator's row repeats its kernels' time
-    events = [e for e in trace.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
+    t_prof, busy_s, top = profiled_round(mcluster, by_cell)
     mcluster.stop()
     n_tokens = 2 * SERVE_USERS * DECODE_STEPS
     log("model_path", model=mcfg.name, params=transformer.param_count(model),
@@ -621,7 +675,237 @@ def main():
         device_busy_share=f"{busy_s / t_prof:.3f}",
         top_kernels_ms=json.dumps(
             {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
-             for e in top}))
+             for e in top}),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    del model, mcluster
+
+    # ---- 10. ssd at the model path's shape --------------------------------
+    t_phase = time.perf_counter()
+    def ssd_inputs(bt, l, h, p, n, dtype, seed):
+        """mamba2-780m's operands: dt from a softplus (mean ~0.05, as
+        softplus(dt_raw + dt_bias) with the init's dt_bias), A = -(1..h),
+        D = 1; x, B and C in ``dtype``."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        x = rn(bt, l, h, p).to(dtype)
+        dt = F.softplus(rn(bt, l, h) - 3.0)
+        a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+        b, c = (rn(bt, l, n) * 0.5).to(dtype), (rn(bt, l, n) * 0.5).to(dtype)
+        return x, dt, a, b, c, torch.ones(h, device=dev)
+
+    def ssd_check(args, chunk, plain, what):
+        """The kernel against ``plain`` (float32 math) on the same inputs:
+        a float32 y within 1e-4 of max |y|, a bf16 y within one bf16 ulp
+        of the output (2^-7 rel + 1e-4 abs); the state within 1e-4 of max
+        |state|.  Returns (max abs err, max scaled err)."""
+        y_k, s_k = ssd_ops.ssd(*args, chunk=chunk)
+        x, dt, a, b, c, d = args
+        y_p, s_p = plain(x.float(), dt, a, b.float(), c.float(), d)
+        torch.cuda.synchronize()
+        dy = (y_k.float() - y_p).abs()
+        ds = (s_k - s_p).abs()
+        y_max, s_max = float(y_p.abs().max()), float(s_p.abs().max())
+        if x.dtype == torch.float32:
+            y_ok = float(dy.max()) <= 1e-4 * y_max
+        else:
+            y_ok = bool((dy <= BF16_ULP_ATOL
+                         + BF16_ULP_RTOL * y_p.abs()).all())
+        if not (y_ok and float(ds.max()) <= 1e-4 * s_max):
+            raise AssertionError(
+                f"ssd kernel ({what}) disagrees with its plain version: y "
+                f"max abs err {float(dy.max())} (max |y| {y_max}), state "
+                f"max abs err {float(ds.max())} (max |state| {s_max})")
+        return (max(float(dy.max()), float(ds.max())),
+                max(float(dy.max()) / y_max, float(ds.max()) / s_max))
+
+    ssd_shape = (SERVE_USERS, MAMBA_SEQ, 48, 64, 128)
+    sargs = ssd_inputs(*ssd_shape, torch.bfloat16, SEED + 900)
+    chunked = lambda *a_: ssd_ref.ssd_chunked(*a_, chunk=256)
+    ssd_err, ssd_scaled = ssd_check(sargs, 256, chunked, "bf16, model shape")
+    y1, s1 = ssd_scan(*sargs, chunk=256)
+    y2, s2 = ssd_scan(*sargs, chunk=256)
+    if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
+        raise AssertionError("ssd kernel is not deterministic")
+    del y1, s1, y2, s2
+    f32_args = ssd_inputs(2, 512, 4, 64, 128, torch.float32, SEED + 901)
+    f32_err, f32_scaled = ssd_check(f32_args, 256, chunked, "f32")
+    del f32_args
+    # a ragged last chunk (2000 = 7 x 256 + 208) against the sequential
+    # recurrence, in float32 at the model's heads
+    rag_args = ssd_inputs(2, 2000, 48, 64, 128, torch.float32, SEED + 902)
+    rag_err, rag_scaled = ssd_check(rag_args, 256, ssd_ref.ssd_sequential,
+                                    "ragged L=2000")
+    del rag_args
+    k_ms = cuda_ms(lambda: ssd_scan(*sargs, chunk=256), reps=20)
+    p_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*sargs, chunk=256), reps=3,
+                   warm=1)
+    x_s, dt_s, _, b_s, _, _ = sargs
+    bt_, l_, h_, p_, n_ = ssd_shape
+    n_bytes = (2 * x_s.numel() * x_s.element_size()        # x in, y out
+               + dt_s.numel() * 4 + 2 * b_s.numel() * b_s.element_size()
+               + bt_ * h_ * p_ * n_ * 4 + 2 * h_ * 4)      # state, a, d
+    # the work these inputs need: per (batch, chunk) the causal half of
+    # C·Bᵀ; per (batch, head, chunk) the causal half of the weighted sum
+    # (and its weight: exp and multiply) and C·S in plus the state update
+    rows = [min(256, l_ - c0) for c0 in range(0, l_, 256)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    n_ops = float(bt_ * (2 * n_ * pairs
+                         + h_ * ((2 * p_ + 2) * pairs
+                                 + 4 * sum(rows) * n_ * p_)))
+    bnd, by = bound_ms(n_bytes, n_ops, BF16_FLOPS_S)
+    log("ssd", shape="B{}xL{}xH{}xP{}xN{}".format(*ssd_shape), chunk=256,
+        dtype="bf16", tol=f"{BF16_ULP_RTOL:.4g}_rel+{BF16_ULP_ATOL:g}_abs"
+        "_vs_f32_plain,state_1e-4_of_max",
+        max_abs_err=f"{ssd_err:.3e}", scaled_err=f"{ssd_scaled:.3e}",
+        f32_B2xL512xH4_scaled_err=f"{f32_scaled:.3e}",
+        ragged_L2000_vs_sequential_scaled_err=f"{rag_scaled:.3e}",
+        f32_tol="1e-4_of_max", bit_identical_repeat=True,
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
+        GFLOP=f"{n_ops / 1e9:.1f}",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    kernels.append(dict(
+        name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:83",
+        max_abs_err=max(ssd_err, f32_err, rag_err),
+        max_scaled_err=max(ssd_scaled, f32_scaled, rag_scaled), ms=k_ms,
+        plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    del sargs, x_s, dt_s, b_s
+
+    # ---- 11. the mamba2 path -----------------------------------------------
+    # Users are cut (16 per cell) because the LM head materialises (rows,
+    # S, 50432) float32 logits, as the JAX package does: 6.6 GB for one
+    # split group of 16 users x 2048 tokens, and again for the decode
+    # prefill.  Width, depth and request length (8 chunks) are the
+    # published ones; weights are random from SEED.
+    t_phase = time.perf_counter()
+    mcfg = configs.get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    model = transformer.init(torch.Generator().manual_seed(SEED), mcfg, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    mscns = [network.make_scenario(
+        torch.Generator().manual_seed(SEED + 700 + i), ncfg, dev)
+        for i in range(2)]
+    mprof = profiles.transformer_profile(mcfg, seq=MAMBA_SEQ, device=dev)
+    mcluster = SplitInferenceCluster(
+        model, mcfg, mprof,
+        spec=ligd.SolverSpec(backend="chunked", per_user_split=True))
+    ids = [mcluster.add_cell(x) for x in mscns]
+    t0 = time.perf_counter()
+    mcluster.start(threaded=False)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t0
+    tokens = torch.randint(0, mcfg.vocab_size,
+                           (2, SERVE_USERS, MAMBA_SEQ), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED + 800)
+                           ).numpy()
+    by_cell = {c: tokens[i] for i, c in enumerate(ids)}
+    ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches["ssd"] = ssd_scan.launches
+    if launches["ssd"] <= 0:
+        raise AssertionError("ssd was not launched on the mamba2 path")
+    check_served(out, ids, mcfg)
+    groups = {int(c): {s_: len(u) for s_, u in
+                       mcluster.installed_schedule(c).groups().items()}
+              for c in ids}
+    split, users = next(iter(mcluster.installed_schedule(ids[0])
+                             .groups().items()))
+    rows = torch.as_tensor(tokens[0][users[:4]], device=dev)
+    fused, _ = transformer.forward(model, mcfg, rows, impl="kernel")
+    split_errs = check_split(model, mcfg, rows, split, fused)
+    # the same rows through the plain chunked scan, with no kernel
+    # launched, and through the plain scan at chunk 128: two exact float32
+    # orders of one scan, whose bf16 logits after 48 layers differ by the
+    # model's own spread (each block's output rounds to bf16, and a one-ulp
+    # flip grows with depth).  The kernel's logits may be no further from
+    # the plain path's than twice that spread.
+    n_ssd = ssd_scan.launches
+    plain, _ = transformer.forward(model, mcfg, rows, impl="naive")
+    plain128, _ = transformer.forward(model, mcfg.replace(ssd_chunk=128),
+                                      rows, impl="naive")
+    if ssd_scan.launches != n_ssd:
+        raise AssertionError("the plain forward launched the ssd kernel")
+    scaled = lambda got, want: float((got - want).abs().max()
+                                     / want.abs().max())
+    plain_err, spread = scaled(fused, plain), scaled(plain128, plain)
+    if not plain_err <= MAMBA_SPREAD_FACTOR * spread:
+        raise AssertionError(f"mamba2 kernel logits differ from the plain "
+                             f"path's by {plain_err} of max |logit|, more "
+                             f"than {MAMBA_SPREAD_FACTOR} x the plain "
+                             f"path's own spread {spread}")
+    # and each path against the plain path with its SSD in float64 (the
+    # scan's y rounded to bf16 once): which of them is nearer the exact
+    # scan
+    def scan_f64(params, cfg, xs, dt, A, B, C, impl):
+        y, state = ssd_ref.ssd_chunked(
+            *(v.double() for v in (xs, dt, A, B, C, params.D)),
+            chunk=min(cfg.ssd_chunk, xs.shape[1]))
+        return y.to(xs.dtype), state.float()
+
+    with mock.patch.object(ssm_mod, "_scan", scan_f64):
+        plain64, _ = transformer.forward(model, mcfg, rows, impl="naive")
+    f64_errs = {"kernel": scaled(fused, plain64),
+                "plain": scaled(plain, plain64),
+                "plain_chunk128": scaled(plain128, plain64)}
+    del fused, plain, plain128, plain64
+    # each block, kernel against plain, on the same input (the plain
+    # stream): within PLAIN_LOGIT_TOL of the block output's max
+    x = transformer.embed_tokens(model, mcfg, rows)
+    block_err = 0.0
+    for spec, layer in zip(mcfg.layer_specs, model.layers):
+        y_k, _ = blocks.forward(layer, mcfg, spec, x, None, impl="kernel")
+        x, _ = blocks.forward(layer, mcfg, spec, x, None, impl="naive")
+        block_err = max(block_err, scaled(y_k, x))
+    del x, y_k
+    if not block_err <= PLAIN_LOGIT_TOL:
+        raise AssertionError(f"a mamba2 block's kernel output differs from "
+                             f"its plain output by {block_err} of max |y|, "
+                             f"tolerance {PLAIN_LOGIT_TOL}")
+    # the same model in float32, kernel against plain logits at full depth
+    m32 = copy.deepcopy(model).float()
+    f32_k, _ = transformer.forward(m32, mcfg, rows, impl="kernel")
+    f32_p, _ = transformer.forward(m32, mcfg, rows, impl="naive")
+    f32_err = scaled(f32_k, f32_p)
+    if not f32_err <= PLAIN_LOGIT_TOL:
+        raise AssertionError(f"float32 mamba2 kernel logits differ from the "
+                             f"plain path's by {f32_err} of max |logit|, "
+                             f"tolerance {PLAIN_LOGIT_TOL}")
+    del m32, f32_k, f32_p
+    t_prof, busy_s, top = profiled_round(mcluster, by_cell)
+    mcluster.stop()
+    log("mamba2_path", model=mcfg.name,
+        params=transformer.param_count(model), d_model=mcfg.d_model,
+        layers=mcfg.n_layers, vocab=mcfg.vocab_size, dtype=mcfg.dtype,
+        cells=2, users=SERVE_USERS, seq=MAMBA_SEQ,
+        decode_steps=DECODE_STEPS, init_s=f"{t_init:.3f}",
+        start_s=f"{t_start:.3f}", serve_round_s=f"{t_serve:.3f}",
+        tokens_per_s=f"{n_tokens / t_serve:.1f}", peak_GiB=f"{peak_gib:.2f}",
+        split_groups=json.dumps(groups).replace(" ", ""),
+        split_vs_fused=json.dumps(split_errs).replace(" ", ""),
+        kernel_vs_plain=f"{plain_err:.3e}",
+        plain_chunk128_vs_plain=f"{spread:.3e}",
+        kernel_vs_plain_tol=f"{MAMBA_SPREAD_FACTOR}x_spread",
+        block_kernel_vs_plain_max=f"{block_err:.3e}",
+        vs_f64_ssd=json.dumps({k: float(f"{v:.3e}") for k, v in
+                               f64_errs.items()}).replace(" ", ""),
+        f32_kernel_vs_plain=f"{f32_err:.3e}",
+        block_and_f32_tol=PLAIN_LOGIT_TOL,
+        launches=json.dumps({"ssd": launches["ssd"]}).replace(" ", ""))
+    log("mamba2_path_profile", round_s=f"{t_prof:.3f}",
+        device_busy_s=f"{busy_s:.3f}",
+        device_busy_share=f"{busy_s / t_prof:.3f}",
+        top_kernels_ms=json.dumps(
+            {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+             for e in top}),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
     del model, mcluster
 
     for k in kernels:

@@ -105,6 +105,12 @@ def library() -> ctypes.CDLL:
     # a, b, h; B, L, D; the stream
     lib.rglru_scan_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.rglru_scan_launch.restype = i32
+    # x, dt, A, B, C, D, y, state; Bt, L, H, P, N, Q; the batch and row
+    # strides of x, B and C; dtype; the stream
+    i64 = ctypes.c_longlong
+    lib.ssd_launch.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 6
+                               + [i32, ptr])
+    lib.ssd_launch.restype = i32
     return lib
 
 

@@ -3,21 +3,19 @@ layer spec.  Three entry points per block: ``forward`` (full sequence),
 ``prefill`` (forward + cache capture), ``decode`` (single token against a
 cache).
 
-The "ssd" mixer (Mamba-2) and the "moe" FFN are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item.
+Mixers: attention and local attention (``attention``), the RG-LRU
+(``rglru``) and the Mamba-2 SSD (``ssm``).  The "moe" FFN is not ported
+yet: it raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, rglru
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import Params, dtype_of, rms_norm
 
 _NOT_PORTED = {
-    "ssd": "the 'ssd' mixer (models/ssm.py and the ssd kernel) is not "
-           "ported yet: it waits for the 'Mamba-2' item of ROADMAP.md's "
-           "queue of modules to port",
     "moe": "the 'moe' FFN (models/moe.py) is not ported yet: it waits for "
            "the 'MoE' item of ROADMAP.md's queue of modules to port",
 }
@@ -41,6 +39,8 @@ def init(generator, cfg, spec, device):
         p["mixer"] = attention.init(generator, cfg, device)
     elif mixer == "rec":
         p["mixer"] = rglru.init(generator, cfg, device)
+    elif mixer == "ssd":
+        p["mixer"] = ssm.init(generator, cfg, device)
     else:
         raise ValueError(mixer)
     if ffn_kind != "none":
@@ -64,8 +64,9 @@ def _apply_ffn(params, cfg, spec, x):
 
 def forward(params, cfg, spec, x, positions, impl="kernel"):
     """(x, positions) -> (x, aux). Full sequence, no cache capture.
-    ``impl`` picks the attention path (``attention.IMPLS``); the
-    recurrent mixer has one path (``rglru``'s docstring)."""
+    ``impl`` picks the attention path (``attention.IMPLS``) and the SSD
+    scan (``"kernel"``, else the plain chunked scan: ``ssm``'s
+    docstring); the RG-LRU mixer has one path (``rglru``'s docstring)."""
     _check_spec(spec)
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
@@ -74,6 +75,8 @@ def forward(params, cfg, spec, x, positions, impl="kernel"):
                               impl=impl)
     elif mixer == "rec":
         y, _ = rglru.forward(params.mixer, cfg, h)
+    elif mixer == "ssd":
+        y = ssm.forward(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
     return _apply_ffn(params, cfg, spec, x + y)
@@ -90,6 +93,8 @@ def init_cache(cfg, spec, batch, max_seq, dtype=None, *, device):
                                     dtype=dtype, device=device)
     if mixer == "rec":
         return rglru.init_cache(cfg, batch, dtype=dtype, device=device)
+    if mixer == "ssd":
+        return ssm.init_cache(cfg, batch, dtype=dtype, device=device)
     raise ValueError(mixer)
 
 
@@ -103,6 +108,8 @@ def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel"):
                                      max_seq, mixer=mixer, impl=impl)
     elif mixer == "rec":
         y, cache = rglru.prefill(params.mixer, cfg, h)
+    elif mixer == "ssd":
+        y, cache = ssm.prefill(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
     x, aux = _apply_ffn(params, cfg, spec, x + y)
@@ -119,6 +126,8 @@ def decode(params, cfg, spec, x, pos, cache):
                                          mixer=mixer)
     elif mixer == "rec":
         y, cache = rglru.decode_step(params.mixer, cfg, h, cache)
+    elif mixer == "ssd":
+        y, cache = ssm.decode_step(params.mixer, cfg, h, cache)
     else:
         raise ValueError(mixer)
     x, _ = _apply_ffn(params, cfg, spec, x + y)

@@ -1,6 +1,7 @@
 """Top-level decoder model: embedding -> one block per layer -> final norm
 -> LM head, for every architecture of ``repro_torch.configs`` whose blocks
-are ported (attention, local attention and RG-LRU mixers; dense FFNs).
+are ported (attention, local attention, RG-LRU and Mamba-2 SSD mixers;
+dense FFNs).
 
 The model is a ``Params`` module: ``embed``, ``layers`` (an
 ``nn.ModuleList`` with one block per layer, where the JAX package stacks

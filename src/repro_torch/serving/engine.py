@@ -13,9 +13,10 @@ split profile; the numerical path (device prefix -> crossing tensor ->
 edge suffix) is the real model on the model's device.
 
 The model runs with ``impl="kernel"``, the model stack's default:
-attention through the hand-written flash-attention kernel and the RG-LRU
-recurrence through the hand-written scan kernel on a CUDA model, their
-plain versions on a CPU one.  This is the one deliberate difference from
+attention through the hand-written flash-attention kernel, the RG-LRU
+recurrence through the hand-written scan kernel and Mamba-2's SSD through
+the hand-written ssd kernel on a CUDA model, their plain versions on a
+CPU one.  This is the one deliberate difference from
 the JAX package, whose serving path takes ``impl="naive"`` because its
 Pallas kernels compile only for a TPU.
 

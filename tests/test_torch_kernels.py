@@ -26,6 +26,9 @@ from repro_torch.kernels.noma_rate.kernel import noma_rate
 from repro_torch.kernels.rglru_scan import ops as sops
 from repro_torch.kernels.rglru_scan import ref as sref
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssd.kernel import ssd_scan
 
 SIZES = [(12, 6), (8, 4)]
 # the JAX package's FLASH_CASES (tests/test_kernels.py):
@@ -47,6 +50,24 @@ FLASH_CARD_CASES = FLASH_CASES + [
 # the JAX package's rglru sweep shapes (tests/test_online_and_rglru_kernel.py)
 SCAN_CASES = [(2, 64, 128), (1, 256, 256), (3, 128, 384)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the JAX package's SSD_CASES (tests/test_kernels.py):
+# bt, l, h, p, n, chunk, dtype of x (its B and C stay float32 there)
+SSD_CASES = [
+    (2, 128, 4, 32, 32, 32, "float32"),
+    (1, 256, 8, 64, 128, 64, "float32"),
+    (2, 512, 4, 64, 128, 256, "float32"),
+    (1, 128, 4, 32, 64, 64, "bfloat16"),
+]
+# on the card: those, a ragged L (100 at chunk 32, 2000 at chunk 256) and
+# mamba2-780m's heads (H=48, P=64, N=128, chunk 256) in bf16
+SSD_CARD_CASES = SSD_CASES + [
+    (2, 100, 4, 32, 32, 32, "float32"),
+    (1, 2000, 4, 64, 128, 256, "bfloat16"),
+    (2, 1024, 48, 64, 128, 256, "bfloat16"),
+]
+# one bf16 ulp of the output (2^-7 of it) plus a small absolute term for
+# float32 summation order near zero; float32 outputs within 1e-4 of scale
+BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +83,10 @@ def J():
     from repro.kernels.flash_attention import ref as jfref
     from repro.kernels.noma_rate import ref as jnref
     from repro.kernels.rglru_scan import ref as jsref
+    from repro.kernels.ssd import ref as jssd
     return SimpleNamespace(jax=jax, jnp=jnp, era=jera, net=jnet,
                            noma=jnoma, prof=jprof, eops=jeops, nref=jnref,
-                           fref=jfref, sref=jsref)
+                           fref=jfref, sref=jsref, ssd=jssd)
 
 
 def _alloc(J, u, m, seed, lead=()):
@@ -431,3 +453,151 @@ def test_rglru_scan_kernel_matches_plain(cuda_device, bt, l, d):
     want = sref.linear_scan_sequential(a, b)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ------------------------------------------------------------------ ssd
+def _ssd_inputs(bt, l, h, p, n, seed=0):
+    """x, dt, a, b, c, d as float32 numpy arrays: dt from a softplus, A
+    negative, D = 1 (the JAX package's sweep inputs, drawn with numpy)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bt, l, h, p)).astype(np.float32)
+    dt = (np.logaddexp(rng.standard_normal((bt, l, h)), 0.0) * 0.1
+          ).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    b = (rng.standard_normal((bt, l, n)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((bt, l, n)) * 0.3).astype(np.float32)
+    return x, dt, a, b, c, np.ones(h, np.float32)
+
+
+def _ssd_bar(got, want, dtype, what):
+    """float32: within 1e-5 of max |want|; bfloat16 outputs: within one
+    bf16 ulp of max |want| (the math is float32 on both sides, only the
+    output rounds)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    bar = 1e-5 if dtype == "float32" else BF16_ULP_RTOL
+    err = np.abs(got - want).max() / scale
+    assert err <= bar, f"{what}: {err:.3e} of scale > {bar}"
+
+
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype", SSD_CASES)
+def test_ssd_ref_matches_jax_oracle(J, bt, l, h, p, n, chunk, dtype):
+    """The plain sequential, chunked and decode versions against the JAX
+    oracles on the same inputs (x in ``dtype``, the same bits on both
+    sides)."""
+    x, dt, a, b, c, d = _ssd_inputs(bt, l, h, p, n)
+    jx = J.jnp.asarray(x, getattr(J.jnp, dtype))
+    tx = torch.as_tensor(x).to(getattr(torch, dtype))
+    targs = [torch.as_tensor(v) for v in (dt, a, b, c, d)]
+    jy_seq, js_seq = J.ssd.ssd_sequential(jx, dt, a, b, c, d)
+    jy_ch, js_ch = J.ssd.ssd_chunked(jx, dt, a, b, c, d, chunk=chunk)
+    y_seq, s_seq = ssd_ref.ssd_sequential(tx, *targs)
+    y_ch, s_ch = ssd_ref.ssd_chunked(tx, *targs, chunk=chunk)
+    assert y_ch.dtype == tx.dtype and s_ch.dtype == torch.float32
+    for got, want, what in ((y_seq, jy_seq, "sequential y"),
+                            (y_ch, jy_ch, "chunked y")):
+        _ssd_bar(got.float().numpy(), np.asarray(want, np.float32), dtype,
+                 what)
+    for got, want, what in ((s_seq, js_seq, "sequential state"),
+                            (s_ch, js_ch, "chunked state")):
+        _ssd_bar(got.numpy(), np.asarray(want), "float32", what)
+    # one decode step from the chunked final state
+    rng = np.random.default_rng(1)
+    xt = rng.standard_normal((bt, h, p)).astype(np.float32)
+    jyd, jsd = J.ssd.ssd_decode_step(
+        J.jnp.asarray(xt, getattr(J.jnp, dtype)), dt[:, 0], a, b[:, 0],
+        c[:, 0], d, js_ch)
+    yd, sd = ssd_ref.ssd_decode_step(
+        torch.as_tensor(xt).to(getattr(torch, dtype)), targs[0][:, 0],
+        targs[1], targs[2][:, 0], targs[3][:, 0], targs[4], s_ch)
+    _ssd_bar(yd.float().numpy(), np.asarray(jyd, np.float32), dtype,
+             "decode y")
+    _ssd_bar(sd.numpy(), np.asarray(jsd), "float32", "decode state")
+
+
+def test_ssd_chunked_ragged_matches_jax_sequential(J):
+    """L = 100 at chunk 32: the last chunk is padded with dt = 0, so the
+    valid rows and the final state are the unpadded scan's."""
+    x, dt, a, b, c, d = _ssd_inputs(2, 100, 4, 32, 32, seed=3)
+    jy, js = J.ssd.ssd_sequential(x, dt, a, b, c, d)
+    y, s = ssd_ref.ssd_chunked(*(torch.as_tensor(v)
+                                 for v in (x, dt, a, b, c, d)), chunk=32)
+    assert y.shape == (2, 100, 4, 32)
+    _ssd_bar(y.numpy(), np.asarray(jy), "float32", "ragged y")
+    _ssd_bar(s.numpy(), np.asarray(js), "float32", "ragged state")
+    # and the wrapper's CPU dispatch is that plain version, launching
+    # nothing
+    before = ssd_scan.launches
+    yw, sw = ssd_ops.ssd(*(torch.as_tensor(v) for v in (x, dt, a, b, c, d)),
+                         chunk=32)
+    assert ssd_scan.launches == before
+    assert torch.equal(yw, y) and torch.equal(sw, s)
+
+
+def test_ssd_wrapper_checks_operands():
+    x, dt, a, b, c, d = (torch.as_tensor(v)
+                         for v in _ssd_inputs(2, 40, 4, 32, 32))
+    # the model's layout: x, b and c slices of one wider tensor
+    xbc = torch.cat([x.reshape(2, 40, 128), b, c], dim=-1)
+    xs, bs, cs = xbc[..., :128].reshape(2, 40, 4, 32), xbc[..., 128:160], \
+        xbc[..., 160:]
+    got = ssd_scan(xs, dt, a, bs, cs, d, chunk=16)
+    want = ssd_ref.ssd_chunked(x, dt, a, b, c, d, chunk=16)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan(x.double(), dt, a, b.double(), c.double(), d, chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan(x, dt, a, b.to(torch.bfloat16), c, d, chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan(x, dt, a, b[:, :20].contiguous(), c, d, chunk=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(x[..., :16].contiguous(), dt, a, b, c, d, chunk=16)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_scan(x, dt, a, b[..., :16].contiguous(),
+                 c[..., :16].contiguous(), d, chunk=16)
+    with pytest.raises(ValueError, match="on meta"):
+        ssd_scan(x, dt.to("meta"), a, b, c, d, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, b,
+                 c, d, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt.transpose(1, 2).contiguous().transpose(1, 2), a, b,
+                 c, d, chunk=16)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan(x, dt, a, xbc[..., 129:161], c, d, chunk=16)
+    for chunk in (0, 257):
+        with pytest.raises(ValueError, match="chunk"):
+            ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype", SSD_CARD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, bt, l, h, p, n, chunk,
+                                  dtype):
+    """The kernel against its plain chunked version on the same inputs:
+    float32 within 1e-4 of max |y| and of max |state|; bf16 inputs
+    against the plain version in float32, y within one bf16 ulp of the
+    output (2^-7 rel + 1e-4 abs).  Repeats are bit-identical."""
+    dt_ = getattr(torch, dtype)
+    x, dts, a, b, c, d = (torch.as_tensor(v).to(cuda_device) for v in
+                          _ssd_inputs(bt, l, h, p, n, seed=l))
+    x, b, c = x.to(dt_), b.to(dt_), c.to(dt_)
+    before = ssd_scan.launches
+    y, s = ssd_ops.ssd(x, dts, a, b, c, d, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dt_ and y.shape == x.shape
+    assert s.dtype == torch.float32 and s.shape == (bt, h, p, n)
+    y32, s32 = ssd_ref.ssd_chunked(x.float(), dts, a, b.float(), c.float(),
+                                   d, chunk=min(chunk, l))
+    if dtype == "float32":
+        torch.testing.assert_close(y, y32, rtol=0,
+                                   atol=1e-4 * float(y32.abs().max()))
+    else:
+        assert bool(((y.float() - y32).abs()
+                     <= BF16_ULP_ATOL + BF16_ULP_RTOL * y32.abs()).all())
+    torch.testing.assert_close(s, s32, rtol=0,
+                               atol=1e-4 * float(s32.abs().max()))
+    y2, s2 = ssd_ops.ssd(x, dts, a, b, c, d, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(s, s2)

@@ -19,22 +19,25 @@ from repro.core import profiles as jprof
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import rglru as jrglru
+from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro.serving import split_runtime as jsplit
 from repro_torch import configs, interop
 from repro_torch.core import profiles
-from repro_torch.models import attention, common, rglru
+from repro_torch.models import attention, common, rglru, ssm
 from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
 
 CPU = "cpu"
-# the five model cases: the hybrid at its tiny depth (one full pattern
-# unit) and at depth 5 (a unit plus a (rec, rec) tail), and three
-# attention-only families; S=96 makes the tiny window of 64 bind
+# the six model cases: the hybrid at its tiny depth (one full pattern
+# unit) and at depth 5 (a unit plus a (rec, rec) tail), three
+# attention-only families and the SSM; S=96 makes the tiny window of 64
+# bind and is three chunks of the tiny mamba2's 32
 MODEL_CASES = [("recurrentgemma-2b", {}),
                ("recurrentgemma-2b", {"n_layers": 5}),
-               ("gemma-2b", {}), ("gemma3-12b", {}), ("llama3-8b", {})]
-MODEL_IDS = ["rg2b", "rg2b-l5", "gemma2b", "gemma3", "llama3"]
+               ("gemma-2b", {}), ("gemma3-12b", {}), ("llama3-8b", {}),
+               ("mamba2-780m", {})]
+MODEL_IDS = ["rg2b", "rg2b-l5", "gemma2b", "gemma3", "llama3", "mamba2"]
 SEQ = 96
 
 
@@ -223,6 +226,103 @@ def test_rglru_init_lambda_range():
     assert float(a_c.min()) >= 0.9 - 1e-5 and float(a_c.max()) <= 0.999 + 1e-5
 
 
+# --------------------------------------------------------------- Mamba-2
+@pytest.fixture(scope="module")
+def ssm_case():
+    jcfg, cfg = _cfgs("mamba2-780m")
+    jp = jssm.init(jax.random.PRNGKey(2), jcfg)
+    p = interop._params(jax.tree.map(np.asarray, jp), CPU)
+    x = np.random.default_rng(9).standard_normal(
+        (2, 100, cfg.d_model)).astype(np.float32) * 0.5
+    return jcfg, cfg, jp, p, x
+
+
+@pytest.mark.parametrize("impl", ["naive", "kernel"])
+def test_ssm_forward_matches_jax(ssm_case, impl):
+    """The mixer at 3 chunks of 32, through the plain chunked scan and the
+    kernel's dispatch (its plain version on the CPU)."""
+    jcfg, cfg, jp, p, x = ssm_case
+    want = jssm.forward(jp, jcfg, x[:, :96])
+    got = ssm.forward(p, cfg, torch.as_tensor(x[:, :96]), impl=impl)
+    _scaled_close(_np(got), want, 1e-5, impl)
+
+
+def test_ssm_prefill_and_decode_match_jax(ssm_case):
+    jcfg, cfg, jp, p, x = ssm_case
+    jy, jc = jssm.prefill(jp, jcfg, x[:, :96])
+    y, c = ssm.prefill(p, cfg, torch.as_tensor(x[:, :96]))
+    _scaled_close(_np(y), jy, 1e-5, "prefill y")
+    for f in ("conv", "state"):
+        _scaled_close(_np(c[f]), jc[f], 1e-5, f)
+    assert c["state"].dtype == torch.float32
+    rng = np.random.default_rng(10)
+    for t in range(5):
+        xt = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32) * 0.5
+        jy, jc = jssm.decode_step(jp, jcfg, xt, jc)
+        y, c = ssm.decode_step(p, cfg, torch.as_tensor(xt), c)
+        _scaled_close(_np(y), jy, 1e-5, f"decode {t}")
+        for f in ("conv", "state"):
+            _scaled_close(_np(c[f]), jc[f], 1e-5, f"{f} {t}")
+    # a prefill shorter than the conv history pads it on the left
+    jy, jc = jssm.prefill(jp, jcfg, x[:, :2])
+    y, c = ssm.prefill(p, cfg, torch.as_tensor(x[:, :2]))
+    _scaled_close(_np(c["conv"]), jc["conv"], 1e-5, "short conv")
+    _scaled_close(_np(y), jy, 1e-5, "short y")
+
+
+def test_ssm_ragged_prefill_matches_jax(ssm_case):
+    """L = 100 at chunk 32: the port's chunked scan (kernel dispatch and
+    plain) masks the ragged last chunk where JAX's prefill takes its
+    sequential scan; outputs, conv history and state agree, and so do a
+    full model's prefill logits."""
+    jcfg, cfg, jp, p, x = ssm_case
+    jy, jc = jssm.prefill(jp, jcfg, x)
+    for impl in ("kernel", "naive"):
+        y, c = ssm.prefill(p, cfg, torch.as_tensor(x), impl=impl)
+        _scaled_close(_np(y), jy, 1e-5, f"{impl} y")
+        for f in ("conv", "state"):
+            _scaled_close(_np(c[f]), jc[f], 1e-5, f"{impl} {f}")
+    jparams = JT.init(jax.random.PRNGKey(0), jcfg)
+    model = interop.model_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), device=CPU)
+    tokens = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    jl, _, _ = JT.prefill(jparams, jcfg, tokens, max_seq=104)
+    lg, caches, _ = T.prefill(model, cfg, torch.as_tensor(tokens),
+                              max_seq=104)
+    _scaled_close(_np(lg), jl, 1e-4, "ragged prefill logits")
+    assert [tuple(c_["state"].shape) for c_ in caches] == \
+        [(2, cfg.n_ssd_heads, cfg.ssd_head_dim, cfg.d_state)] * cfg.n_layers
+
+
+def test_ssm_forward_raises_at_ragged_length(ssm_case):
+    """As the JAX forward asserts L % min(chunk, L) == 0."""
+    _, cfg, _, p, x = ssm_case
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        ssm.forward(p, cfg, torch.as_tensor(x))
+    model = T.init(torch.Generator().manual_seed(0), cfg, CPU)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        T.forward(model, cfg, torch.zeros((1, 100), dtype=torch.int64))
+
+
+def test_ssm_init_dt_bias_range():
+    """softplus(dt_bias) spans [1e-3, 0.1] (the Mamba-2 default), A_log
+    is log(1..H), D is 1."""
+    _, cfg = _cfgs("mamba2-780m")
+    full = configs.get_config("mamba2-780m")
+    for c in (cfg, full):
+        p = ssm.init(torch.Generator().manual_seed(0), c, CPU)
+        dt = torch.nn.functional.softplus(p.dt_bias)
+        assert p.dt_bias.dtype == torch.float32
+        assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+        assert float(dt.max()) <= 0.1 * (1 + 1e-5)
+        np.testing.assert_allclose(
+            _np(p.A_log), np.log(np.arange(1, c.n_ssd_heads + 1)), rtol=1e-6)
+        assert torch.equal(p.D, torch.ones(c.n_ssd_heads))
+    assert tuple(p.in_proj.shape) == (1536, 2 * 3072 + 2 * 128 + 48)
+    assert p.in_proj.dtype == torch.bfloat16
+
+
 # ------------------------------------------------------------ full model
 def test_model_from_numpy_has_init_layout(model_case):
     jcfg, cfg, jparams, model, _ = model_case
@@ -243,6 +343,30 @@ def test_model_from_numpy_keeps_bfloat16_bits():
     assert model.embed.dtype == torch.bfloat16
     np.testing.assert_array_equal(model.embed.float().numpy(), want)
     assert model.layers[0].mixer.w_a.dtype == torch.float32
+
+
+def test_model_from_numpy_keeps_ssm_dtypes():
+    """bf16 mamba2 weights keep their bits; A_log, dt_bias and D stay
+    float32, as the JAX init makes them."""
+    jcfg = jconfigs.get_tiny_config("mamba2-780m")
+    cfg = configs.get_tiny_config("mamba2-780m")
+    jparams = JT.init(jax.random.PRNGKey(0), jcfg)
+    model = interop.model_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                                     device=CPU)
+    jmix = jax.tree.map(lambda v: np.asarray(v)[1],
+                        jparams["units"][0]["mixer"])
+    mix = model.layers[1].mixer
+    for name in ("A_log", "dt_bias", "D"):
+        assert getattr(mix, name).dtype == torch.float32, name
+        np.testing.assert_array_equal(_np(getattr(mix, name)), jmix[name])
+    for name in ("in_proj", "conv_w", "norm_w", "out_proj"):
+        assert getattr(mix, name).dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(
+            getattr(mix, name).float().numpy(),
+            jmix[name].astype(np.float32))
+    fresh = T.init(torch.Generator().manual_seed(0), cfg, CPU)
+    assert {n: x.dtype for n, x in model.named_parameters()} == \
+        {n: x.dtype for n, x in fresh.named_parameters()}
 
 
 @pytest.mark.parametrize("impl", ["naive", "kernel"])
@@ -321,10 +445,14 @@ def test_musicgen_and_vlm_embeddings_match_jax():
 
 
 def test_unported_families_raise():
-    for name in ("mamba2-780m", "mixtral-8x22b", "dbrx-132b"):
+    """The MoE families still raise; mamba2 (ported) builds."""
+    for name in ("mixtral-8x22b", "dbrx-132b"):
         cfg = configs.get_tiny_config(name)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.init(torch.Generator().manual_seed(0), cfg, CPU)
+    cfg = configs.get_tiny_config("mamba2-780m")
+    model = T.init(torch.Generator().manual_seed(0), cfg, CPU)
+    assert len(model.layers) == cfg.n_layers
 
 
 # --------------------------------------------------------------- profiles

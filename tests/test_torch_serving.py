@@ -264,7 +264,8 @@ def test_split_serve_engine_matches_jax():
         _assert_result(g, 2)
 
 
-@pytest.mark.parametrize("name", ["gemma-2b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["gemma-2b", "recurrentgemma-2b",
+                                  "mamba2-780m"])
 def test_multicell_serve_round_matches_jax(name):
     """One lockstep ``serve_round`` (solve, install, execute, decode 3
     steps) on both engines: equal splits and tokens, latencies at rtol
