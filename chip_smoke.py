@@ -9,7 +9,10 @@ each with its timings:
   1. platform   torch / CUDA versions, the card's name and power limit
   2. build      nvcc of every kernel source, with its wall time
   3. era_step   the fused GD-step kernel against its plain version at the
-                paper's width (U=1250, M=250, N=5, B=2), one step
+                paper's width (U=1250, M=250, N=5, B=2), one step; its
+                five launches' device time from the profiler (the kernel's
+                ``ms``), the CUDA-event time of a Python call
+                (``event_ms``) and the wrapper's host time per call
   4. noma_rate  the SIC uplink-rate kernel against its plain version at
                 the same width
   5. solve      ``solve_batch`` at a small config, B=4, fused step (the
@@ -25,7 +28,9 @@ each with its timings:
                 (B=2, S=4096, H=10, K=1, D=256, window 2048, bf16), at the
                 model path's shape (B=16, S=512, the same heads), and in
                 float32 at S=512; each bf16 case is held against the plain
-                version in bf16 and in float32
+                version in bf16 and in float32; the bf16 kernel's achieved
+                TFLOP/s at both shapes, and the registers and spills of
+                every instantiation (ptxas), none of which may spill
   8. rglru_scan  the RG-LRU scan kernel against its plain sequential
                 version at the model path's shape (B=16, L=512, D=2560)
   9. model path  recurrentgemma-2b at full width and depth in bf16, served
@@ -65,12 +70,15 @@ non-zero, and so does a machine without a card.
 import copy
 import json
 import os
+import re
 import sys
 import time
 from unittest import mock
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -127,6 +135,39 @@ def cuda_ms(fn, reps, warm=2):
     return e0.elapsed_time(e1) / reps
 
 
+def launch_breakdown(fn, reps):
+    """Where one call of ``fn`` spends its time: each of its kernel
+    launches' device ms in launch order (the profiler's kernel records,
+    averaged over ``reps`` calls), their sum, and the host ms a call
+    takes to enqueue them (no synchronisation inside the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ker = sorted((e for e in trace.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per = len(ker) // reps
+    if per == 0 or per * reps != len(ker):
+        raise AssertionError(f"{len(ker)} kernel records for {reps} calls")
+    # "void (anonymous namespace)::pass0_kernel(...)" -> "pass0_kernel"
+    short = lambda name: "".join(
+        re.search(r"(\w+)(<[^()]*>)?\(", name).groups(""))
+    launches = [(short(ker[i].name),
+                 sum(ker[c * per + i].time_range.elapsed_us()
+                     for c in range(reps)) / reps / 1e3)
+                for i in range(per)]
+    return launches, sum(t for _, t in launches), host_ms
+
+
 def peak_mib(fn):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -181,8 +222,6 @@ def main():
         sys.exit("chip_smoke.py needs a CUDA card; none is available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.core import era, ligd, network, profiles
@@ -192,8 +231,8 @@ def main():
     from repro_torch.kernels.era_step.kernel import era_step_fused
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd, flash_attention_bshd)
     from repro_torch.kernels.noma_rate.kernel import noma_rate
     from repro_torch.kernels.noma_rate.ops import sorted_operands
     from repro_torch.kernels.noma_rate.ref import noma_rate_ref
@@ -252,7 +291,12 @@ def main():
     again = era_step_fused(*operands)
     if not all(torch.equal(x, y) for x, y in zip(out_k, again)):
         raise AssertionError("era_step kernel is not deterministic")
-    k_ms = cuda_ms(lambda: era_step_fused(*operands), reps=50)
+    ev_ms = cuda_ms(lambda: era_step_fused(*operands), reps=50)
+    # the kernel's own time: its launches' device time from the profiler
+    # (CUDA events around the Python call also count the wrapper's host
+    # time once that exceeds the device's)
+    per_launch, k_ms, host_ms = launch_breakdown(
+        lambda: era_step_fused(*operands), reps=20)
     p_ms = cuda_ms(lambda: era_ref.fused_step_math(*operands), reps=3, warm=1)
     k_mib = peak_mib(lambda: era_step_fused(*operands))
     p_mib = peak_mib(lambda: era_ref.fused_step_math(*operands))
@@ -266,7 +310,11 @@ def main():
         tol="gamma_rtol_1e-5,leaves_1e-4_of_max",
         gamma_rel_err=f"{gamma_err:.3e}",
         grad_scaled_err=",".join(f"{e:.3e}" for e in leaf_errs),
-        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        kernel_device_ms=f"{k_ms:.4f}", kernel_event_ms=f"{ev_ms:.4f}",
+        host_ms_per_call=f"{host_ms:.4f}",
+        launch_device_ms=json.dumps([[n_, round(t, 4)] for n_, t in
+                                     per_launch]).replace(" ", ""),
+        plain_ms=f"{p_ms:.4f}",
         bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
         kernel_peak_MiB=f"{k_mib:.1f}", plain_peak_MiB=f"{p_mib:.1f}",
         launches=era_step_fused.launches)
@@ -276,7 +324,8 @@ def main():
         replaces="src/repro/kernels/era_step/kernel.py:231",
         max_abs_err=max(float((k - p).abs().max())
                         for k, p in zip(out_k, (g_p,) + tuple(grads_p))),
-        max_scaled_err=max([gamma_err] + leaf_errs), ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+        max_scaled_err=max([gamma_err] + leaf_errs), ms=k_ms, event_ms=ev_ms,
+        plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
     del out_k, g_p, grads_p, again
 
     # ---- 4. noma_rate at paper width, one cell (as build_schedule) ------
@@ -406,7 +455,8 @@ def main():
         """The kernel against its plain version on the same inputs, within
         ``tol`` absolute plus relative; bf16 inputs are also held against
         the plain version in float32 within one bf16 ulp of the output
-        (the kernel's math is float32 and only its output is rounded).
+        (the kernel's sums are float32, P enters P·V as its bf16 head and
+        remainder, and only its output is rounded).
         Returns the kernel's output, its max abs difference from the plain
         version, that version's max |o|, and the float32 difference."""
         out_k = fa_ops.flash_attention(q, k, v, causal=True, window=window)
@@ -464,11 +514,20 @@ def main():
     qm, km, vm = folded(q, k, v)
     main_ms = cuda_ms(lambda: flash_attention_bhsd(qm, km, vm, causal=True,
                                                    window=win), reps=20)
+    main_flop = 4.0 * d * SERVE_USERS * h * sum(
+        min(i + 1, win) for i in range(SERVE_SEQ))
     del q, k, v, qm, km, vm
     # float32 at S=512, a window that binds
     q32, k32, v32 = attn_inputs(2, 512, h, kh, d, torch.float32, SEED + 301)
     _, fa_err32_s512, _, _ = attn_check(q32, k32, v32, 128, 2e-5)
     del q32, k32, v32
+    # registers and spills of every instantiation (ptxas -v of this build)
+    fa_usage = {re.sub(r"^_ZN\w*?flash_attention", "", name)[:48]: use
+                for name, use in _build.ptxas_usage("flash_attention").items()}
+    spilled = {n_: u_ for n_, u_ in fa_usage.items() if u_[1] or u_[2]}
+    if spilled:
+        raise AssertionError(f"flash_attention instantiations spill "
+                             f"(registers, store, load bytes): {spilled}")
     log("flash_attention", shape=f"B{b}xS{s_len}xH{h}xK{kh}xD{d}",
         window=win, dtype="bf16", tol="2e-2_abs+rel",
         max_abs_err=f"{fa_err:.3e}", kernel_ms=f"{k_ms:.4f}",
@@ -478,12 +537,15 @@ def main():
         f32_plain_max_abs_err=f"{fa_err32:.3e}",
         bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
         GFLOP=f"{4.0 * d * pairs / 1e9:.1f}",
+        TFLOP_s=f"{4.0 * d * pairs / k_ms / 1e9:.1f}",
         main_path_shape=f"B{SERVE_USERS}xS{SERVE_SEQ}",
+        main_path_TFLOP_s=f"{main_flop / main_ms / 1e9:.1f}",
         main_path_max_abs_err=f"{fa_err_main:.3e}",
         main_path_f32_plain_max_abs_err=f"{fa_err32_main:.3e}",
         main_path_ms=f"{main_ms:.4f}",
         f32_S512_window128_max_abs_err=f"{fa_err32_s512:.3e}",
-        f32_tol="2e-5")
+        f32_tol="2e-5",
+        ptxas_regs_spill_st_ld=json.dumps(fa_usage).replace(" ", ""))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -613,7 +675,7 @@ def main():
                            generator=torch.Generator().manual_seed(SEED + 600)
                            ).numpy()
     by_cell = {c: tokens[i] for i, c in enumerate(ids)}
-    flash_attention_bhsd.launches = 0
+    flash_attention_bshd.launches = 0
     rglru_scan.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -622,7 +684,7 @@ def main():
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches["flash_attention"] = flash_attention_bhsd.launches
+    launches["flash_attention"] = flash_attention_bshd.launches
     launches["rglru_scan"] = rglru_scan.launches
     for name in ("flash_attention", "rglru_scan"):
         if launches[name] <= 0:
@@ -642,12 +704,12 @@ def main():
     # sequential scan, with neither kernel launched
     kernel_scan = rglru_mod.linear_scan
     rglru_mod.linear_scan = scan_ref.linear_scan_sequential
-    n_fa, n_scan = flash_attention_bhsd.launches, rglru_scan.launches
+    n_fa, n_scan = flash_attention_bshd.launches, rglru_scan.launches
     try:
         plain, _ = transformer.forward(model, mcfg, rows, impl="naive")
     finally:
         rglru_mod.linear_scan = kernel_scan
-    if (flash_attention_bhsd.launches, rglru_scan.launches) != (n_fa, n_scan):
+    if (flash_attention_bshd.launches, rglru_scan.launches) != (n_fa, n_scan):
         raise AssertionError("the plain forward launched a kernel")
     plain_err = float((plain - fused).abs().max() / plain.abs().max())
     if not plain_err <= PLAIN_LOGIT_TOL:
@@ -911,9 +973,9 @@ def main():
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "max_scaled_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")
-    print(json.dumps({"kernels": [{f: k[f] for f in order}
+             "max_abs_err", "max_scaled_err", "ms", "event_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{f: k[f] for f in order if f in k}
                                   for k in kernels]}))
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(smi)

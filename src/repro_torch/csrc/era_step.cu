@@ -9,13 +9,9 @@
 // row once (β up/down, SIC rank/gid) plus the 2·N cross-gain slabs, which
 // also hold each user's own-AP gain (the entry at its serving AP), and
 // writes the two β-gradient rows: about 22.5 MB per cell at U=1250, M=250,
-// N=5.  Its arithmetic is
-// the in-group SIC pairs (about U²/(2N) per channel and direction) plus a
-// few dozen flops per (channel, user): about 3x fewer float32 operations
-// than the 67 TFLOP/s CUDA-core rate would need to catch the 3.35 TB/s
-// memory rate.  As written it stays far from that bound (PERF.md has the
-// times): each thread walks its SIC group serially in shared memory, so a
-// warp waits on its longest walk and on bank conflicts between the walks.
+// N=5.  Its arithmetic is the in-group SIC sums plus a few dozen flops per
+// (channel, user): about 3x fewer float32 operations than the 67 TFLOP/s
+// CUDA-core rate would need to catch the 3.35 TB/s memory rate.
 //
 // Design.  The TPU kernel walks a sequential (2, M/bm) grid and carries the
 // per-user rate rows in VMEM scratch; Hopper blocks run in no order, so the
@@ -25,20 +21,20 @@
 //   1. pass0  <<<(M, B)>>>  one block per (channel, cell): the channel's
 //      SIC contributions are scattered into decode order in shared memory,
 //      the per-AP other-cell sums come from a fixed-order block reduction,
-//      and each user's in-group suffix is a short loop over the users
-//      decoded after it (only masked-in terms are added, so an empty suffix
-//      is exactly 0.0 and the balanced relu tie fires as in autodiff);
-//      writes β·rate partials to a (2, B, M, U) scratch.
+//      and every user's in-group suffix comes from one exclusive segmented
+//      scan over the decode ranks (seg_scan2); writes β·rate partials to a
+//      (2, B, M, U) scratch.
 //   2. colsum  sums the partials over m -> the (2, B, U) rate rows.
 //   3. tail   <<<B>>>  the M-free delay/energy/QoE/Γ forward and backward.
 //   4. pass1  <<<(M, B)>>>  recomputes the channel's forward, keeps ψ in
-//      shared memory in decode order, applies the transposed suffix (a loop
-//      over same-group users decoded before j), writes the β-gradient rows
-//      and the d_p / d_p_ap partials.
+//      shared memory in decode order, applies the transposed suffix (the
+//      forward exclusive segmented scan), writes the β-gradient rows and
+//      the d_p / d_p_ap partials.
 //   5. colsum  d_p = d_p0 + Σ_m partials, the same for d_p_ap.
-// The in-group loops rely on each SIC group occupying consecutive decode
-// ranks, which build_aux guarantees (gid is the group's first rank).
-// Simple first: no wgmma, no TMA, one thread per user per loop.
+// The TPU kernel takes the in-group sums as a masked matvec on the MXU
+// (U² work per channel); the scan takes U adds and a few shuffles.  The
+// scan relies on each SIC group occupying consecutive decode ranks, which
+// build_aux guarantees (gid is the group's first rank).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +43,8 @@ namespace {
 
 constexpr int kMaxAps = 8;
 constexpr int kThreads = 256;
+constexpr int kTailThreads = 1024;   // the tail has one block per cell
+constexpr int kStripes = 32;         // colsum's stripes of m
 constexpr int kEnvLanes = 16;
 constexpr float kLn2 = 0.6931471805599453f;
 enum { NOISE = 0, BW, C_DEV, C_MIN, LAM_EXP, XI_D, XI_E,
@@ -138,13 +136,15 @@ __device__ Chan make_chan(const Ops& o, int b, int m, int M, int U, int N) {
 // Scatter the channel's uplink contributions and downlink components into
 // decode order, and reduce the per-AP sums: acc[n] = uplink β·p·h received
 // at AP n from other-cell users, acc[kMaxAps + n] = AP n's downlink power.
+// s_ap keeps each user's serving AP (user order) for the later loops.
 __device__ void load_channel(const Chan& c, float* s_cu, int* s_gu,
-                             float* s_cd, int* s_gd, float* red,
+                             float* s_cd, int* s_gd, int* s_ap, float* red,
                              float (&acc)[2 * kMaxAps]) {
 #pragma unroll
   for (int k = 0; k < 2 * kMaxAps; ++k) acc[k] = 0.f;
   for (int i = threadIdx.x; i < c.U; i += blockDim.x) {
     const int a = serving_ap(c.oh, i, c.U, c.N);
+    s_ap[i] = a;
     const float bp = c.bu[i] * c.pu[i];
     const int ku = c.urank[i];
     s_cu[ku] = bp * c.h_up(a, i);
@@ -163,33 +163,104 @@ __device__ void load_channel(const Chan& c, float* s_cu, int* s_gu,
   block_sum<2 * kMaxAps>(acc, red);
 }
 
-// Σ of s_c over the positions after k that share k's group (decoded later).
-__device__ __forceinline__ float suffix(const float* s_c, const int* s_g,
-                                        int k, int U) {
-  const int g = s_g[k];
-  float s = 0.f;
-  for (int kk = k + 1; kk < U && s_g[kk] == g; ++kk) s += s_c[kk];
-  return s;
+// Groups are runs of consecutive decode ranks (build_aux's layout), so a
+// group boundary sits after k when the next rank's group differs: k is the
+// last of its group in the suffix direction, the first in the prefix one.
+template <bool kSuffix>
+__device__ __forceinline__ bool seg_head(const int* g, int k, int U) {
+  if (kSuffix) return k == U - 1 || g[k + 1] != g[k];
+  return k == 0 || g[k - 1] != g[k];
 }
 
-// Σ of s_w over the positions before k that share k's group.
-__device__ __forceinline__ float prefix(const float* s_w, const int* s_g,
-                                        int k) {
-  const int g = s_g[k];
-  float s = 0.f;
-  for (int kk = k - 1; kk >= 0 && s_g[kk] == g; --kk) s += s_w[kk];
-  return s;
+// Exclusive segmented scan, in place, of two decode-order arrays at once:
+//   kSuffix:  v[k] <- Σ v[kk] over kk > k in k's group (the SIC suffix)
+//   !kSuffix: v[k] <- Σ v[kk] over kk < k in k's group (its transpose)
+// Each thread owns R = ceil(U / blockDim) consecutive ranks.  A serial
+// pass gives its run's aggregate (the sum carried out of the run and
+// whether a group boundary inside it stops an incoming carry); a warp
+// shuffle scan and then the warps' aggregates in index order give the
+// carry into each run; a second serial pass writes the exclusive sums.
+// The position at a group's far end gets the scan's identity, 0.0, not a
+// difference of two sums, so the balanced relu tie fires as in autodiff.
+// Fixed order, no atomics: repeated calls are bit-identical.  red: 2·64
+// floats of shared; the caller has synchronised v and g.
+template <bool kSuffix>
+__device__ void seg_scan2(float* v0, const int* g0, float* v1,
+                          const int* g1, int U, float* red) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  const int R = (U + blockDim.x - 1) / blockDim.x;
+  const int lo = min(t * R, U), hi = min(lo + R, U), n = hi - lo;
+  float* v[2] = {v0, v1};
+  const int* g[2] = {g0, g1};
+  float agg[2];
+  bool stop[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float s = 0.f;
+    bool f = false;
+    for (int j = 0; j < n; ++j) {
+      const int k = kSuffix ? hi - 1 - j : lo + j;
+      if (seg_head<kSuffix>(g[a], k, U)) { s = 0.f; f = true; }
+      s += v[a][k];
+    }
+    // inclusive scan over the warp's runs, toward the carry's direction
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float os = kSuffix ? __shfl_down_sync(0xffffffffu, s, d)
+                               : __shfl_up_sync(0xffffffffu, s, d);
+      const int of = kSuffix ? __shfl_down_sync(0xffffffffu, (int)f, d)
+                             : __shfl_up_sync(0xffffffffu, (int)f, d);
+      if (kSuffix ? lane + d < 32 : lane >= d) {
+        if (!f) s += os;
+        f = f || of;
+      }
+    }
+    agg[a] = s;
+    stop[a] = f;
+    if (lane == (kSuffix ? 0 : 31)) {
+      red[a * 64 + warp] = s;
+      red[a * 64 + 32 + warp] = f ? 1.f : 0.f;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    // carry into this warp: the warps beyond it, nearest last
+    float c = 0.f;
+    if (kSuffix) {
+      for (int w = nw - 1; w > warp; --w)
+        c = red[a * 64 + 32 + w] != 0.f ? red[a * 64 + w]
+                                        : red[a * 64 + w] + c;
+    } else {
+      for (int w = 0; w < warp; ++w)
+        c = red[a * 64 + 32 + w] != 0.f ? red[a * 64 + w]
+                                        : red[a * 64 + w] + c;
+    }
+    const float incl = stop[a] ? agg[a] : agg[a] + c;
+    // carry into this run: the inclusive value of the neighbouring run
+    const float nb = kSuffix ? __shfl_down_sync(0xffffffffu, incl, 1)
+                             : __shfl_up_sync(0xffffffffu, incl, 1);
+    float s = lane == (kSuffix ? 31 : 0) ? c : nb;
+    for (int j = 0; j < n; ++j) {
+      const int k = kSuffix ? hi - 1 - j : lo + j;
+      if (seg_head<kSuffix>(g[a], k, U)) s = 0.f;
+      const float x = v[a][k];
+      v[a][k] = s;
+      s += x;
+    }
+  }
+  __syncthreads();
 }
 
 struct UpFwd { float intra, d, sinr, rate; };
 struct DnFwd { float intra, raw, d, sinr, rate; };
 
 __device__ __forceinline__ UpFwd up_forward(const Chan& c, const float* s_cu,
-                                            const int* s_gu,
                                             const float (&acc)[2 * kMaxAps],
                                             int i, int a) {
   UpFwd f;
-  f.intra = suffix(s_cu, s_gu, c.urank[i], c.U);
+  f.intra = s_cu[c.urank[i]];
   float raw_a = 0.f;
 #pragma unroll
   for (int n = 0; n < kMaxAps; ++n)
@@ -201,12 +272,11 @@ __device__ __forceinline__ UpFwd up_forward(const Chan& c, const float* s_cu,
 }
 
 __device__ __forceinline__ DnFwd dn_forward(const Chan& c, const float* s_cd,
-                                            const int* s_gd,
                                             const float (&acc)[2 * kMaxAps],
                                             int i, int a) {
   DnFwd f;
   const float own = c.h_dn(a, i);
-  f.intra = suffix(s_cd, s_gd, c.drank[i], c.U) * own;
+  f.intra = s_cd[c.drank[i]] * own;
   f.raw = 0.f;
 #pragma unroll
   for (int n = 0; n < kMaxAps; ++n) {
@@ -227,26 +297,28 @@ pass0_kernel(Ops o, float* parts, int B, int M, int U, int N) {
   int* s_gu = reinterpret_cast<int*>(smem + U);
   float* s_cd = smem + 2 * U;
   int* s_gd = reinterpret_cast<int*>(smem + 3 * U);
+  int* s_ap = reinterpret_cast<int*>(smem + 4 * U);
   const int m = blockIdx.x, b = blockIdx.y;
   const Chan c = make_chan(o, b, m, M, U, N);
   float acc[2 * kMaxAps];
-  load_channel(c, s_cu, s_gu, s_cd, s_gd, red, acc);
+  load_channel(c, s_cu, s_gu, s_cd, s_gd, s_ap, red, acc);
+  seg_scan2<true>(s_cu, s_gu, s_cd, s_gd, U, red);
   float* part_up = parts + c.row;
   float* part_dn = parts + (size_t)B * M * U + c.row;
   for (int i = threadIdx.x; i < U; i += blockDim.x) {
-    const int a = serving_ap(c.oh, i, U, N);
-    const UpFwd fu = up_forward(c, s_cu, s_gu, acc, i, a);
+    const int a = s_ap[i];
+    const UpFwd fu = up_forward(c, s_cu, acc, i, a);
     part_up[i] = c.bu[i] * fu.rate;
-    const DnFwd fd = dn_forward(c, s_cd, s_gd, acc, i, a);
+    const DnFwd fd = dn_forward(c, s_cd, acc, i, a);
     part_dn[i] = c.bd[i] * fd.rate;
   }
 }
 
 // out[pl, j] = add0[pl, j] + Σ_m in[pl, m, j], m summed in a fixed order:
-// eight stripes of m, then the stripes in index order.
+// kStripes stripes of m, then the stripes in index order.
 __global__ void colsum_kernel(const float* in, const float* add0, float* out,
                               int M, int U) {
-  __shared__ float part[8][33];
+  __shared__ float part[kStripes][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j = blockIdx.x * 32 + tx;
   const size_t pl = blockIdx.y;
@@ -254,21 +326,21 @@ __global__ void colsum_kernel(const float* in, const float* add0, float* out,
   if (j < U) {
     const float* base = in + pl * M * U + j;
 #pragma unroll 4
-    for (int m = ty; m < M; m += 8) s += base[(size_t)m * U];
+    for (int m = ty; m < M; m += kStripes) s += base[(size_t)m * U];
   }
   part[ty][tx] = s;
   __syncthreads();
   if (ty == 0 && j < U) {
     float t = part[0][tx];
 #pragma unroll
-    for (int k = 1; k < 8; ++k) t += part[k][tx];
+    for (int k = 1; k < kStripes; ++k) t += part[k][tx];
     out[pl * U + j] = add0 ? add0[pl * U + j] + t : t;
   }
 }
 
 // The M-free tail (ref.tail_grads): rows (4, B, U) = g_rup, g_rdn, d_p0,
 // d_pap0; gamma (B,); d_r (B, U).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTailThreads)
 tail_kernel(Ops o, const float* rates, float* gamma, float* rows,
             float* d_r, int B, int U) {
   __shared__ float red[5 * 32];
@@ -338,27 +410,29 @@ pass1_kernel(Ops o, const float* rows, float* d_bu, float* d_bd,
   float* u_q = smem + 7 * U;       // d_sinr / D, uplink
   float* d_rate = smem + 8 * U;
   float* d_q = smem + 9 * U;
+  int* s_ap = reinterpret_cast<int*>(smem + 10 * U);   // user order
   const int m = blockIdx.x, b = blockIdx.y;
   const Chan c = make_chan(o, b, m, M, U, N);
   const size_t plane = (size_t)B * U;
   const float* g_rup = rows + (size_t)b * U;
   const float* g_rdn = rows + plane + (size_t)b * U;
   float acc[2 * kMaxAps];
-  load_channel(c, s_cu, s_gu, s_cd, s_gd, red, acc);
+  load_channel(c, s_cu, s_gu, s_cd, s_gd, s_ap, red, acc);
+  seg_scan2<true>(s_cu, s_gu, s_cd, s_gd, U, red);
 
   // forward again, then the cotangents of the SINR denominators
   float gsum[2 * kMaxAps];
 #pragma unroll
   for (int k = 0; k < 2 * kMaxAps; ++k) gsum[k] = 0.f;
   for (int i = threadIdx.x; i < U; i += blockDim.x) {
-    const int a = serving_ap(c.oh, i, U, N);
-    const UpFwd fu = up_forward(c, s_cu, s_gu, acc, i, a);
+    const int a = s_ap[i];
+    const UpFwd fu = up_forward(c, s_cu, acc, i, a);
     const float d_sinr = (g_rup[i] * c.bu[i]) * c.bw / ((1.f + fu.sinr) * kLn2);
     const float psi = -d_sinr * fu.sinr / fu.d;
     s_wu[c.urank[i]] = psi * tie(fu.intra);
     u_rate[i] = fu.rate;
     u_q[i] = d_sinr / fu.d;
-    const DnFwd fd = dn_forward(c, s_cd, s_gd, acc, i, a);
+    const DnFwd fd = dn_forward(c, s_cd, acc, i, a);
     const float d_sinr_d =
         (g_rdn[i] * c.bd[i]) * c.bw / ((1.f + fd.sinr) * kLn2);
     const float psi_d = -d_sinr_d * fd.sinr / fd.d;
@@ -376,11 +450,12 @@ pass1_kernel(Ops o, const float* rows, float* d_bu, float* d_bd,
   block_sum<2 * kMaxAps>(gsum, red);   // also orders s_w* writes before reads
 #pragma unroll
   for (int n = 0; n < kMaxAps; ++n) gsum[n] *= tie(acc[n]);
+  seg_scan2<false>(s_wu, s_gu, s_wd, s_gd, U, red);
 
   float* part_p = parts + c.row;
   float* part_pap = parts + (size_t)B * M * U + c.row;
   for (int j = threadIdx.x; j < U; j += blockDim.x) {
-    const int a = serving_ap(c.oh, j, U, N);
+    const int a = s_ap[j];
     const float own_up = c.h_up(a, j), own_dn = c.h_dn(a, j);
     // uplink: β gradient row and the d_p partial
     float d_bp = 0.f;
@@ -389,7 +464,7 @@ pass1_kernel(Ops o, const float* rows, float* d_bu, float* d_bd,
       if (n >= N) break;
       if (n != a) d_bp += gsum[n] * c.h_up(n, j);
     }
-    d_bp = d_bp + prefix(s_wu, s_gu, c.urank[j]) * own_up;
+    d_bp = d_bp + s_wu[c.urank[j]] * own_up;
     d_bu[c.row + j] = g_rup[j] * u_rate[j] + d_bp * c.pu[j];
     part_p[j] = d_bp * c.bu[j] + u_q[j] * own_up;
     // downlink
@@ -397,7 +472,7 @@ pass1_kernel(Ops o, const float* rows, float* d_bu, float* d_bd,
 #pragma unroll
     for (int n = 0; n < kMaxAps; ++n)
       if (n == a) d_ap_a = gsum[kMaxAps + n];
-    const float d_comp = prefix(s_wd, s_gd, c.drank[j]) + d_ap_a;
+    const float d_comp = s_wd[c.drank[j]] + d_ap_a;
     d_bd[c.row + j] = g_rdn[j] * d_rate[j] + d_comp * c.pd[j];
     part_pap[j] = d_comp * c.bd[j] + d_q[j] * own_dn;
   }
@@ -427,17 +502,17 @@ extern "C" int era_step_launch(
               envp, h_up_r, h_dn_r, onehot,
               up_rank, up_gid, dn_rank, dn_gid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem0 = 4 * (size_t)U * sizeof(float);
-  const size_t smem1 = 10 * (size_t)U * sizeof(float);
+  const size_t smem0 = 5 * (size_t)U * sizeof(float);
+  const size_t smem1 = 11 * (size_t)U * sizeof(float);
   cudaError_t err = smem_limit((const void*)pass0_kernel, smem0);
   if (err != cudaSuccess) return (int)err;
   err = smem_limit((const void*)pass1_kernel, smem1);
   if (err != cudaSuccess) return (int)err;
   const dim3 chan_grid(M, B);
-  const dim3 sum_grid((U + 31) / 32, 2 * B), sum_block(32, 8);
+  const dim3 sum_grid((U + 31) / 32, 2 * B), sum_block(32, kStripes);
   pass0_kernel<<<chan_grid, kThreads, smem0, s>>>(o, parts, B, M, U, N);
   colsum_kernel<<<sum_grid, sum_block, 0, s>>>(parts, nullptr, rates, M, U);
-  tail_kernel<<<B, kThreads, 0, s>>>(o, rates, gamma, rows, d_r, B, U);
+  tail_kernel<<<B, kTailThreads, 0, s>>>(o, rates, gamma, rows, d_r, B, U);
   pass1_kernel<<<chan_grid, kThreads, smem1, s>>>(o, rows, d_bu, d_bd, parts,
                                                   B, M, U, N);
   colsum_kernel<<<sum_grid, sum_block, 0, s>>>(parts, rows + 2 * (size_t)B * U,

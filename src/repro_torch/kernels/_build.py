@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -86,6 +87,31 @@ def build() -> Path:
     return lib
 
 
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict:
+    """``{entry: (registers, spill store bytes, spill load bytes)}`` from
+    the ``-Xptxas -v`` report of one source."""
+    usage, entry, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            entry, spills = m.group(1), (0, 0)
+        elif entry and (m := _SPILLS.search(line)):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif entry and (m := _REGS.search(line)):
+            usage[entry] = (int(m.group(1)),) + spills
+            entry = None
+    return usage
+
+
+def ptxas_usage(stem: str) -> dict:
+    """``parse_ptxas`` of ``csrc/<stem>.cu``'s report in the current build."""
+    return parse_ptxas((build().parent / f"{stem}.ptxas.txt").read_text())
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first call), with every entry
@@ -98,9 +124,11 @@ def library() -> ctypes.CDLL:
     # contrib, sig, key, inter, bw, out; B, M, U; the stream
     lib.noma_rate_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.noma_rate_launch.restype = i32
-    # q, k, v, o; BH, group, S, T, D, causal, window, dtype; scale; stream
-    lib.flash_attention_launch.argtypes = ([ptr] * 4 + [i32] * 8
-                                           + [ctypes.c_float, ptr])
+    # q, k, v, o; B, H, KH, S, T, D, causal, window, dtype; scale; the
+    # (batch, seq, head) strides of q, k, v, o; the stream
+    lib.flash_attention_launch.argtypes = (
+        [ptr] * 4 + [i32] * 9
+        + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ptr])
     lib.flash_attention_launch.restype = i32
     # a, b, h; B, L, D; the stream
     lib.rglru_scan_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]

@@ -9,13 +9,15 @@ kernel launches.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.era_step import ref as _ref
 
 MAX_APS = 8                       # kMaxAps in era_step.cu
-SMEM_ROWS = 10                    # pass1's dynamic shared rows of U words
+SMEM_ROWS = 11                    # pass1's dynamic shared rows of U words
 SMEM_STATIC = 2 * MAX_APS * 32 * 4  # pass1's block-reduction buffer
 SMEM_LIMIT = 232448               # bytes a block may use on sm_90
 
@@ -55,12 +57,25 @@ def _check(operands):
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if x.dtype != dtype:
             raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-        if tuple(x.shape) != want[name]:
+        if x.shape != want[name]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                              f"expected {want[name]}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     return b, m, u, n
+
+
+def _layout(b, m, u):
+    """Offsets (in floats) of the outputs and the kernel's scratch in the
+    one buffer a call allocates: gamma (B,), d_beta_up_t and d_beta_dn_t
+    (B, M, U), d_p and d_pap (2, B, 1, U), d_r (B, 1, U), then the scratch
+    parts (2, B, M, U), rates (2, B, U) and rows (4, B, U)."""
+    sizes = (b, b * m * u, b * m * u, 2 * b * u, b * u, 2 * b * m * u,
+             2 * b * u, 4 * b * u)
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 4) * 4)   # 16-byte aligned
+    return offsets
 
 
 def era_step_fused(*operands):
@@ -71,24 +86,20 @@ def era_step_fused(*operands):
         return (gamma,) + tuple(grads)
     lib = _build.library()
     dev = operands[0].device
-    f32 = dict(dtype=torch.float32, device=dev)
-    gamma = torch.empty((b,), **f32)
-    d_bu = torch.empty((b, m, u), **f32)
-    d_bd = torch.empty((b, m, u), **f32)
-    d_pp = torch.empty((2, b, 1, u), **f32)
-    d_r = torch.empty((b, 1, u), **f32)
-    parts = torch.empty((2, b, m, u), **f32)
-    rates = torch.empty((2, b, u), **f32)
-    rows = torch.empty((4, b, u), **f32)
+    off = _layout(b, m, u)
+    # one allocation a call holds the outputs and the kernel's scratch
+    buf = torch.empty((off[-1],), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.era_step_launch(
         *(x.data_ptr() for x in operands),
-        gamma.data_ptr(), d_bu.data_ptr(), d_bd.data_ptr(), d_pp.data_ptr(),
-        d_r.data_ptr(), parts.data_ptr(), rates.data_ptr(), rows.data_ptr(),
-        b, m, u, n, stream)
+        *(base + 4 * o for o in off[:8]), b, m, u, n, stream)
     _build.check(status, "era_step_launch")
     era_step_fused.launches += 1
-    return gamma, d_bu, d_bd, d_pp[0], d_pp[1], d_r
+    view = lambda i, shape: buf[off[i]:off[i] + math.prod(shape)].view(shape)
+    d_pp = view(3, (2, b, 1, u))
+    return (view(0, (b,)), view(1, (b, m, u)), view(2, (b, m, u)),
+            d_pp[0], d_pp[1], view(4, (b, 1, u)))
 
 
 era_step_fused.launches = 0

@@ -19,7 +19,8 @@ from repro_torch.kernels.era_step import ref as eref
 from repro_torch.kernels.era_step.kernel import era_step_fused
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bhsd, flash_attention_bshd)
 from repro_torch.kernels.noma_rate import ops as nops
 from repro_torch.kernels.noma_rate import ref as nref
 from repro_torch.kernels.noma_rate.kernel import noma_rate
@@ -316,6 +317,68 @@ def test_era_step_kernel_matches_plain(cuda_device, u, m, b):
     assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
+def _edge_scenario(case, device):
+    """The segmented scan's edge cases: ``one_group`` (N=1: one SIC group
+    of all 1250 users spans every thread's run), ``singletons`` (five
+    users, one per AP: every in-group sum is empty), ``ragged`` (U=77 and
+    U=1000, multiples of neither 32 nor 256), ``zero_beta`` (N=1 with half
+    the users off channel 0: their group-mates' suffixes are sums of exact
+    zeros, where the plain version's balanced relu tie gives 0.5)."""
+    u, n, m = {"one_group": (1250, 1, 8), "singletons": (5, 5, 4),
+               "ragged77": (77, 4, 5), "ragged1000": (1000, 3, 6),
+               "zero_beta": (300, 1, 6)}[case]
+    cfg = network.small_config(n_users=u, n_aps=n, n_subchannels=m)
+    scn = network.make_scenario(torch.Generator().manual_seed(u + n), cfg,
+                                device)
+    if case == "singletons":
+        scn = network._with_orderings(cfg, torch.arange(u, device=device),
+                                      scn.h_up, scn.h_dn)
+    scn = network.stack_scenarios([scn])
+    alloc = era.uniform_alloc(scn, torch.Generator().manual_seed(3))
+    if case == "zero_beta":
+        # off channel 0: the users decoded in the second half of its order,
+        # in each direction
+        aux = eops.build_aux(scn)
+        b_up, b_dn = alloc.beta_up.clone(), alloc.beta_dn.clone()
+        b_up[0, :, 0][aux.up_rank[0, 0] >= u // 2] = 0.0
+        b_dn[0, :, 0][aux.dn_rank[0, 0] >= u // 2] = 0.0
+        alloc = alloc._replace(beta_up=b_up, beta_dn=b_dn)
+    return scn, alloc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_group", "singletons", "ragged77",
+                                  "ragged1000", "zero_beta"])
+def test_era_step_kernel_segment_edges(cuda_device, case):
+    """The in-group sums' segmented scan at its edges, held to the plain
+    version (Γ rtol 1e-5, leaves 1e-4 of their max) with bit-identical
+    repeats.  In ``zero_beta`` a wrong tie (1 or 0 where the plain version
+    has 0.5) would move the zeroed users' gradients by O(1) of scale."""
+    scn, alloc = _edge_scenario(case, cuda_device)
+    u = scn.n_users
+    prof = profiles.get_profile("yolov2", cuda_device)
+    s = torch.full((1, u), 5, dtype=torch.int64, device=cuda_device)
+    q = torch.full((1, u), 0.3, device=cuda_device)
+    ops = eops._operands(scn, prof, s, q, alloc, eops.build_aux(scn),
+                         era.Weights())
+    out = era_step_fused(*ops)
+    g, grads = eref.fused_step_math(*ops)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[0], g, rtol=1e-5, atol=0)
+    pb.assert_leaves_close([x.cpu() for x in out[1:]],
+                           [x.cpu() for x in grads], atol=1e-4)
+    if case == "zero_beta":
+        # the plain version's suffix on channel 0 holds exact zeros that
+        # are sums of zeros (not empty suffixes): the tie case
+        mask = eref._sic_mask(ops[14], ops[15])[0]
+        intra = eref._suffix_apply(mask, (ops[0] * ops[2])[0])[0]  # β·p
+        assert int(((intra == 0) & (mask[0].sum(-1) > 0)).sum()) \
+            >= u // 2 - 1
+    for _ in range(2):
+        again = era_step_fused(*ops)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("u,m,b", [(12, 6, 1), (300, 16, 2)])
 def test_noma_rate_kernel_matches_plain(cuda_device, u, m, b):
@@ -366,9 +429,9 @@ def test_flash_wrapper_folds_gqa_and_checks_operands():
     nothing; malformed operands raise."""
     b, s, h, kh, d = 2, 40, 4, 2, 64
     q, k, v = (torch.as_tensor(x) for x in _flash_inputs(b, s, h, kh, d))
-    before = flash_attention_bhsd.launches
+    before = flash_attention_bshd.launches
     got = fops.flash_attention(q, k, v, causal=True, window=16)
-    assert flash_attention_bhsd.launches == before
+    assert flash_attention_bshd.launches == before
     torch.testing.assert_close(
         got, fref.attention_ref(q, k, v, causal=True, window=16))
     fold = lambda x: x.transpose(1, 2).reshape(-1, s, d).contiguous()
@@ -386,6 +449,62 @@ def test_flash_wrapper_folds_gqa_and_checks_operands():
                              fold(v).double())
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_bhsd(fold(q), fold(k).to(torch.bfloat16), fold(v))
+
+
+def test_flash_bshd_reads_views_and_checks_strides():
+    """On the CPU the model-layout wrapper takes strided views as they are
+    (the plain version) and launches nothing; a head_dim that is not
+    contiguous, or rows off 16-byte boundaries (the kernel copies rows 16
+    bytes at a time), raise."""
+    b, s, h, kh, d = 2, 24, 4, 2, 64
+    rng = np.random.default_rng(3)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, h + 2 * kh, d)),
+                          dtype=torch.float32)
+    q, k, v = qkv.split([h, kh, kh], dim=2)
+    before = flash_attention_bshd.launches
+    got = flash_attention_bshd(q, k, v, causal=True, window=8)
+    assert flash_attention_bshd.launches == before
+    assert got.is_contiguous()
+    torch.testing.assert_close(
+        got, fref.attention_ref(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True, window=8))
+    with pytest.raises(ValueError, match="head_dim is not contiguous"):
+        flash_attention_bshd(torch.randn(b, s, d, h).transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bshd(torch.randn(b, s, h, d + 1)[..., :d], k, v)
+    with pytest.raises(ValueError, match="4-D"):
+        flash_attention_bshd(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bshd(q, k[:, :10], v)
+
+
+@pytest.mark.parametrize("b,m,u", [(1, 1, 1), (2, 250, 1250), (3, 7, 77)])
+def test_era_step_buffer_layout_is_aligned_and_disjoint(b, m, u):
+    """The one buffer a CUDA call allocates for its outputs and scratch:
+    every array starts on a 16-byte boundary and ends before the next."""
+    from repro_torch.kernels.era_step import kernel as ek
+    off = ek._layout(b, m, u)
+    sizes = (b, b * m * u, b * m * u, 2 * b * u, b * u, 2 * b * m * u,
+             2 * b * u, 4 * b * u)
+    assert len(off) == len(sizes) + 1
+    for i, n in enumerate(sizes):
+        assert off[i] % 4 == 0 and off[i] + n <= off[i + 1]
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    from repro_torch.kernels import _build
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'",
+        "ptxas info    : Function properties for _Zk1",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 412 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'",
+        "ptxas info    : Function properties for _Zk2",
+        "    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 255 registers, 412 bytes cmem[0]"])
+    assert _build.parse_ptxas(text) == {"_Zk1": (168, 0, 0),
+                                        "_Zk2": (255, 12, 4)}
 
 
 # ------------------------------------------------------------ rglru scan
@@ -430,14 +549,77 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, s, h, kh, d,
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(x).to(cuda_device, dt)
                for x in _flash_inputs(b, s, h, kh, d, seed=s))
-    before = flash_attention_bhsd.launches
+    before = flash_attention_bshd.launches
     got = fops.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_attention_bhsd.launches == before + 1
+    assert flash_attention_bshd.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
     want = fref.attention_ref(q, k, v, causal=True, window=window)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# the bf16 tensor-core kernel's tile edges (128 query rows, 64 keys):
+# S = 1, 77, 1000; windows 16, 100, 2048 (inside, across, beyond a tile);
+# GQA groups 1, 2, 8; D = 64, 128, 256.  b, s, h, kh, d, window
+FLASH_EDGE_CASES = [
+    (1, 1, 8, 1, 256, 2048),
+    (2, 77, 4, 2, 64, 16),
+    (1, 77, 2, 2, 128, 100),
+    (1, 1000, 2, 2, 128, 16),
+    (2, 1000, 8, 1, 256, 100),
+    (1, 1000, 4, 2, 64, 2048),
+    (1, 1000, 8, 1, 256, 0),
+    (1, 300, 8, 8, 256, 2048),
+]
+
+
+def _flash_vs_plain(q, k, v, window):
+    """The kernel (model layout) against its plain version in q's dtype at
+    FLASH_TOL and, for bf16, against the float32 plain version within one
+    bf16 ulp of the output."""
+    before = flash_attention_bshd.launches
+    got = fops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bshd.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = fref.attention_ref(q, k, v, causal=True, window=window)
+    tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if q.dtype == torch.bfloat16:
+        want32 = fref.attention_ref(q.float(), k.float(), v.float(),
+                                    causal=True, window=window)
+        err = (got.float() - want32).abs()
+        assert bool((err <= BF16_ULP_ATOL
+                     + BF16_ULP_RTOL * want32.abs()).all()), float(err.max())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,window", FLASH_EDGE_CASES)
+def test_flash_attention_kernel_tile_edges(cuda_device, b, s, h, kh, d,
+                                           window):
+    q, k, v = (torch.as_tensor(x).to(cuda_device, torch.bfloat16)
+               for x in _flash_inputs(b, s, h, kh, d, seed=s + d))
+    _flash_vs_plain(q, k, v, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernel_reads_strided_views(cuda_device, dtype):
+    """q, k and v as slices of one fused (B, S, H + 2K, D) projection: the
+    kernel reads them in place and equals its result on contiguous
+    copies bit for bit."""
+    b, s, h, kh, d = 2, 200, 4, 2, 128
+    rng = np.random.default_rng(7)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, h + 2 * kh, d)),
+                          dtype=getattr(torch, dtype), device=cuda_device)
+    q, k, v = qkv.split([h, kh, kh], dim=2)
+    assert not q.is_contiguous()
+    got = _flash_vs_plain(q, k, v, 64)
+    dense = fops.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True, window=64)
+    assert torch.equal(got, dense)
 
 
 @pytest.mark.cuda

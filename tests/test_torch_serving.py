@@ -24,7 +24,7 @@ from repro.serving.cluster import SplitInferenceCluster as JCluster
 from repro_torch import interop
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import era, ligd, network, profiles
-from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan
 from repro_torch.models import transformer as T
 from repro_torch.serving import scheduler
@@ -209,11 +209,11 @@ def test_cluster_with_model_serves_round_on_cpu():
     cl.start(threaded=False)
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 6, 16)).astype(np.int32)
-    flash0, scan0 = flash_attention_bhsd.launches, rglru_scan.launches
+    flash0, scan0 = flash_attention_bshd.launches, rglru_scan.launches
     out = cl.serve_round({c: toks[i] for i, c in enumerate(ids)},
                          decode_steps=3)
     # CPU tensors take the plain versions: nothing is launched
-    assert (flash_attention_bhsd.launches, rglru_scan.launches) \
+    assert (flash_attention_bshd.launches, rglru_scan.launches) \
         == (flash0, scan0)
     assert sorted(out) == sorted(ids)
     for cid in ids:
