@@ -14,7 +14,10 @@ each with its timings:
                 ``ms``), the CUDA-event time of a Python call
                 (``event_ms``) and the wrapper's host time per call
   4. noma_rate  the SIC uplink-rate kernel against its plain version at
-                the same width
+                the same width; its launch's device time from the profiler
+                (the kernel's ``ms``), the CUDA-event time of a Python call
+                (``event_ms``), the wrapper's host time per call and that
+                of its ordering check alone
   5. solve      ``solve_batch`` at a small config, B=4, fused step (the
                 kernel) against autograd: equal splits and iteration
                 counts, Γ within rtol 1e-4
@@ -45,7 +48,12 @@ each with its timings:
                 the model path's shape (B=16, L=2048, H=48, P=64, N=128,
                 chunk 256, bf16 x/B/C, A = -(1..48)), in float32 at
                 (2, 512, 4, 64, 128, 256), and at a ragged L=2000 against
-                the plain sequential scan
+                the plain sequential scan; its three launches' device time
+                from the profiler (the kernel's ``ms``; ``event_ms`` the
+                CUDA-event time), TFLOP/s on the work the function needs,
+                the bytes its chunk states move, and the registers and
+                spills of every instantiation (ptxas), none of which may
+                spill
  11. mamba2 path  mamba2-780m at full width and depth in bf16, served by
                 a ``SplitInferenceCluster`` of two cells with 2048-token
                 requests: the ssd kernel must have been launched in
@@ -135,11 +143,14 @@ def cuda_ms(fn, reps, warm=2):
     return e0.elapsed_time(e1) / reps
 
 
-def launch_breakdown(fn, reps):
-    """Where one call of ``fn`` spends its time: each of its kernel
-    launches' device ms in launch order (the profiler's kernel records,
-    averaged over ``reps`` calls), their sum, and the host ms a call
-    takes to enqueue them (no synchronisation inside the timed loop)."""
+def launch_breakdown(fn, reps, names):
+    """Where one call of ``fn`` spends its time: the device ms of each of
+    its kernel launches ``names`` (in launch order, as ``short_name``
+    gives them), from the profiler's kernel records averaged over the
+    calls whose records are complete, their sum, the host ms a call takes
+    to enqueue them (no synchronisation inside the timed loop), and how
+    many of the ``reps`` calls had complete records.  Records of other
+    kernels (a wrapper's own torch ops) are left out."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -155,17 +166,29 @@ def launch_breakdown(fn, reps):
     ker = sorted((e for e in trace.events()
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
-    per = len(ker) // reps
-    if per == 0 or per * reps != len(ker):
-        raise AssertionError(f"{len(ker)} kernel records for {reps} calls")
-    # "void (anonymous namespace)::pass0_kernel(...)" -> "pass0_kernel"
-    short = lambda name: "".join(
-        re.search(r"(\w+)(<[^()]*>)?\(", name).groups(""))
-    launches = [(short(ker[i].name),
-                 sum(ker[c * per + i].time_range.elapsed_us()
-                     for c in range(reps)) / reps / 1e3)
-                for i in range(per)]
-    return launches, sum(t for _, t in launches), host_ms
+    seq = [(short_name(e.name), e.time_range.elapsed_us() / 1e3)
+           for e in ker if short_name(e.name) in names]
+    # a profiler session may drop records: count the runs of ``names``
+    calls, i, k = [], 0, len(names)
+    while i + k <= len(seq):
+        if [n_ for n_, _ in seq[i:i + k]] == list(names):
+            calls.append([t for _, t in seq[i:i + k]])
+            i += k
+        else:
+            i += 1
+    if 2 * len(calls) < reps:
+        raise AssertionError(f"{len(calls)} of {reps} calls have complete "
+                             f"kernel records ({len(ker)} records)")
+    launches = [(n_, sum(c[j] for c in calls) / len(calls))
+                for j, n_ in enumerate(names)]
+    return launches, sum(t for _, t in launches), host_ms, len(calls)
+
+
+def short_name(name):
+    """"void (anonymous namespace)::ssd_out_kernel<64, 128>(...)" ->
+    "ssd_out_kernel"."""
+    m = re.search(r"(\w+)(<[^()]*>)?\(", name)
+    return m.group(1) if m else name[:60]
 
 
 def peak_mib(fn):
@@ -295,8 +318,10 @@ def main():
     # the kernel's own time: its launches' device time from the profiler
     # (CUDA events around the Python call also count the wrapper's host
     # time once that exceeds the device's)
-    per_launch, k_ms, host_ms = launch_breakdown(
-        lambda: era_step_fused(*operands), reps=20)
+    per_launch, k_ms, host_ms, _ = launch_breakdown(
+        lambda: era_step_fused(*operands), reps=20,
+        names=("pass0_kernel", "colsum_kernel", "tail_kernel",
+               "pass1_kernel", "colsum_kernel"))
     p_ms = cuda_ms(lambda: era_ref.fused_step_math(*operands), reps=3, warm=1)
     k_mib = peak_mib(lambda: era_step_fused(*operands))
     p_mib = peak_mib(lambda: era_ref.fused_step_math(*operands))
@@ -337,7 +362,16 @@ def main():
     if not rate_err <= 1e-5:
         raise AssertionError(f"noma_rate kernel disagrees with its plain "
                              f"version: scaled err {rate_err}")
-    k_ms = cuda_ms(lambda: noma_rate(*args), reps=50)
+    ev_ms = cuda_ms(lambda: noma_rate(*args), reps=50)
+    # the kernel's own device time (the profiler), apart from the wrapper's
+    # host time, which waits for its ordering check's result every call
+    _, k_ms, host_ms, n_prof = launch_breakdown(
+        lambda: noma_rate(*args), reps=20, names=("noma_rate_kernel",))
+    gend = args[2]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        bool((gend[..., 1:] < gend[..., :-1]).any())
+    check_ms = (time.perf_counter() - t0) / 20 * 1e3
     p_ms = cuda_ms(lambda: noma_rate_ref(*args), reps=3, warm=1)
     n_bytes = (sum(x.numel() * x.element_size() for x in args)
                + r_k.numel() * r_k.element_size())
@@ -345,7 +379,10 @@ def main():
     bnd, by = bound_ms(n_bytes, n_ops)
     log("noma_rate", shape=f"B1xM{m}xU{u}", rate_scaled_err=f"{rate_err:.3e}",
         tol="1e-5_of_max",
-        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        kernel_device_ms=f"{k_ms:.4f}", kernel_event_ms=f"{ev_ms:.4f}",
+        host_ms_per_call=f"{host_ms:.4f}",
+        order_check_host_ms=f"{check_ms:.4f}", profiled_calls=n_prof,
+        plain_ms=f"{p_ms:.4f}",
         bound_ms=f"{bnd:.4f}", bound_by=by,
         MB_moved=f"{n_bytes / 1e6:.2f}",
         kernel_peak_MiB=f"{peak_mib(lambda: noma_rate(*args)):.1f}",
@@ -356,7 +393,8 @@ def main():
         source="src/repro_torch/csrc/noma_rate.cu",
         replaces="src/repro/kernels/noma_rate/kernel.py:52",
         max_abs_err=float((r_k - r_p).abs().max()),
-        max_scaled_err=rate_err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+        max_scaled_err=rate_err, ms=k_ms, event_ms=ev_ms, plain_ms=p_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None))
     del r_k, r_p, args, operands, aux, scn_b, alloc
 
     # ---- 5. solve_batch, fused (kernel) against autograd ---------------
@@ -587,7 +625,10 @@ def main():
     # ---- helpers of the model paths (phases 9 and 11) --------------------
     def check_served(out, ids, mcfg):
         """Every user of every cell served, tokens in range, each latency
-        the sum of its parts."""
+        the sum of its parts.  The range is the LM head's: like the JAX
+        package's engine, the port takes the argmax over the padded vocab
+        (mamba2-780m: 50280 padded to 50432), so a padded token is a legal
+        output of both."""
         if sorted(out) != sorted(ids):
             raise AssertionError(f"served cells {sorted(out)}, expected "
                                  f"{ids}")
@@ -598,7 +639,7 @@ def main():
             for r in res:
                 if r.tokens_out.shape != (DECODE_STEPS,) or not (
                         0 <= r.tokens_out.min()
-                        and r.tokens_out.max() < mcfg.vocab_size):
+                        and r.tokens_out.max() < mcfg.padded_vocab):
                     raise AssertionError(f"cell {cid} user {r.user}: tokens "
                                          f"{r.tokens_out}")
                 if r.latency_s != (r.t_device + r.t_uplink + r.t_edge
@@ -798,7 +839,10 @@ def main():
     rag_err, rag_scaled = ssd_check(rag_args, 256, ssd_ref.ssd_sequential,
                                     "ragged L=2000")
     del rag_args
-    k_ms = cuda_ms(lambda: ssd_scan(*sargs, chunk=256), reps=20)
+    ev_ms = cuda_ms(lambda: ssd_scan(*sargs, chunk=256), reps=20)
+    per_launch, k_ms, host_ms, n_prof = launch_breakdown(
+        lambda: ssd_scan(*sargs, chunk=256), reps=10,
+        names=("ssd_states_kernel", "ssd_pass_kernel", "ssd_out_kernel"))
     p_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*sargs, chunk=256), reps=3,
                    warm=1)
     x_s, dt_s, _, b_s, _, _ = sargs
@@ -815,6 +859,14 @@ def main():
                          + h_ * ((2 * p_ + 2) * pairs
                                  + 4 * sum(rows) * n_ * p_)))
     bnd, by = bound_ms(n_bytes, n_ops, BF16_FLOPS_S)
+    # what the bf16 kernel's three launches move beyond the bound's bytes:
+    # the chunk states (written by the first, read and written by the
+    # pass, read by the last) and x, read by the first and the last
+    st_bytes = bt_ * -(-l_ // 256) * h_ * p_ * n_ * 4
+    design_bytes = n_bytes + x_s.numel() * x_s.element_size() + 4 * st_bytes
+    # registers and spills of every instantiation (ptxas -v of this build)
+    ssd_usage = {re.sub(r"^_ZN\w*?ssd", "", name)[:48]: use
+                 for name, use in _build.ptxas_usage("ssd").items()}
     log("ssd", shape="B{}xL{}xH{}xP{}xN{}".format(*ssd_shape), chunk=256,
         dtype="bf16", tol=f"{BF16_ULP_RTOL:.4g}_rel+{BF16_ULP_ATOL:g}_abs"
         "_vs_f32_plain,state_1e-4_of_max",
@@ -822,17 +874,28 @@ def main():
         f32_B2xL512xH4_scaled_err=f"{f32_scaled:.3e}",
         ragged_L2000_vs_sequential_scaled_err=f"{rag_scaled:.3e}",
         f32_tol="1e-4_of_max", bit_identical_repeat=True,
-        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        kernel_device_ms=f"{k_ms:.4f}", kernel_event_ms=f"{ev_ms:.4f}",
+        host_ms_per_call=f"{host_ms:.4f}",
+        launch_device_ms=json.dumps([[n_, round(t, 4)] for n_, t in
+                                     per_launch]).replace(" ", ""),
+        profiled_calls=n_prof, plain_ms=f"{p_ms:.4f}",
         bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
-        GFLOP=f"{n_ops / 1e9:.1f}",
+        GFLOP=f"{n_ops / 1e9:.1f}", TFLOP_s=f"{n_ops / k_ms / 1e9:.1f}",
+        chunk_state_MB=f"{4 * st_bytes / 1e6:.2f}",
+        design_MB_moved=f"{design_bytes / 1e6:.2f}",
+        ptxas_regs_spill_st_ld=json.dumps(ssd_usage).replace(" ", ""),
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
     kernels.append(dict(
         name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:83",
         max_abs_err=max(ssd_err, f32_err, rag_err),
         max_scaled_err=max(ssd_scaled, f32_scaled, rag_scaled), ms=k_ms,
-        plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+        event_ms=ev_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None))
     del sargs, x_s, dt_s, b_s
+    spilled = {n_: u_ for n_, u_ in ssd_usage.items() if u_[1] or u_[2]}
+    if spilled:
+        raise AssertionError(f"ssd instantiations spill (registers, store, "
+                             f"load bytes): {spilled}")
 
     # ---- 11. the mamba2 path -----------------------------------------------
     # Users are cut (16 per cell) because the LM head materialises (rows,

@@ -8,20 +8,27 @@
 //                                          + inter))
 //
 // What bounds it on an H100: bytes.  It reads four (B, M, U) rows and writes
-// one; its arithmetic is the in-group pairs (about U²/(2N) per channel) plus
-// a log2 and a division per element.  As written it stays far from that
-// bound (PERF.md has the times): each thread's serial walk over its group
-// sets a block's time, as in era_step.
+// one; its arithmetic is U adds per channel for the in-group suffixes plus a
+// log2 and a division per element.  At the solver's B=1, M=250 the bytes
+// take about 2 µs, below a launch's own latency.
 //
 // Design: one block per (channel, cell) loads the channel's contrib and key
-// rows into shared memory; each thread walks the positions after its own
-// while the key stays equal, so it adds only masked-in terms (an empty
-// suffix is exactly 0.0) and touches only its group.  That walk needs equal
-// keys to sit in consecutive positions, which holds for the SIC tensors a
+// rows into shared memory and takes every position's in-group suffix from
+// one exclusive segmented suffix scan (seg_scan.cuh, shared with era_step):
+// each thread sums a run of consecutive positions, a warp shuffle scan and
+// the warps' aggregates in index order carry the sums across runs, and a
+// group boundary stops the carry.  A group's last position gets the scan's
+// identity, exactly 0.0 (an empty suffix, as the plain version's masked
+// matvec gives), not a difference of two sums.  The order is fixed and no
+// atomics are used, so repeated calls are bit-identical.  The scan needs
+// equal keys in consecutive positions, which holds for the SIC tensors a
 // Scenario carries (keys are the non-decreasing group-end indices); the
-// wrapper checks it.  Simple first: one thread per position, no tiling.
+// wrapper checks it.  It replaces one serial walk per position, whose
+// longest group (~U/N = 250 users) set each block's time.
 
 #include <cuda_runtime.h>
+
+#include "seg_scan.cuh"
 
 namespace {
 
@@ -32,6 +39,7 @@ noma_rate_kernel(const float* contrib, const float* sig, const int* key,
                  const float* inter, const float* bw, float* out, int M,
                  int U) {
   extern __shared__ float smem[];
+  __shared__ float red[64];
   float* s_c = smem;
   int* s_k = reinterpret_cast<int*>(smem + U);
   const int m = blockIdx.x, b = blockIdx.y;
@@ -41,12 +49,12 @@ noma_rate_kernel(const float* contrib, const float* sig, const int* key,
     s_k[i] = key[row + i];
   }
   __syncthreads();
+  float* v[1] = {s_c};
+  const int* g[1] = {s_k};
+  seg_scan<true, 1>(v, g, U, red);        // s_c[i] <- its in-group suffix
   const float w = bw[b];
   for (int i = threadIdx.x; i < U; i += blockDim.x) {
-    const int k = s_k[i];
-    float intra = 0.f;
-    for (int j = i + 1; j < U && s_k[j] == k; ++j) intra += s_c[j];
-    const float sinr = sig[row + i] / (intra + inter[row + i]);
+    const float sinr = sig[row + i] / (s_c[i] + inter[row + i]);
     out[row + i] = w * log2f(1.f + sinr);
   }
 }

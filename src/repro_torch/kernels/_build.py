@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands under ``build/repro_torch/<hash>/`` at the repository root,
-keyed by a hash of the sources and flags, so a checkout builds it at first
-use and reuses it after.  The sources compile in parallel, one ``nvcc`` per
+keyed by a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so a checkout builds it at first use and reuses it after.  The sources compile in parallel, one ``nvcc`` per
 file, then link.  No ``--use_fast_math``: ``log2f``, ``expf`` and division
 must stay accurate for the kernels' 1e-5 agreement with their plain
 versions.
@@ -45,6 +45,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _key(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -57,7 +61,7 @@ def build() -> Path:
     """Compile the sources (if this hash is not built yet) and return the
     library's path."""
     sources = _sources()
-    out_dir = BUILD_ROOT / _key(sources)
+    out_dir = BUILD_ROOT / _key(sources + _headers())
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -133,10 +137,10 @@ def library() -> ctypes.CDLL:
     # a, b, h; B, L, D; the stream
     lib.rglru_scan_launch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.rglru_scan_launch.restype = i32
-    # x, dt, A, B, C, D, y, state; Bt, L, H, P, N, Q; the batch and row
-    # strides of x, B and C; dtype; the stream
+    # x, dt, A, B, C, D, y, state, the bf16 path's scratch; Bt, L, H, P,
+    # N, Q; the batch and row strides of x, B and C; dtype; the stream
     i64 = ctypes.c_longlong
-    lib.ssd_launch.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 6
+    lib.ssd_launch.argtypes = ([ptr] * 9 + [i32] * 6 + [i64] * 6
                                + [i32, ptr])
     lib.ssd_launch.restype = i32
     return lib

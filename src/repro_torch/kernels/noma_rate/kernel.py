@@ -13,6 +13,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.noma_rate.ref import noma_rate_ref
 
 SMEM_LIMIT = 232448               # bytes a block may use on sm_90
+SCAN_SMEM = 64 * 4                # the segmented scan's carries
 
 
 def _check(contrib, sig, group_end, inter, bw):
@@ -36,7 +37,7 @@ def _check(contrib, sig, group_end, inter, bw):
                              f"expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if 2 * u * 4 > SMEM_LIMIT:
+    if 2 * u * 4 + SCAN_SMEM > SMEM_LIMIT:
         raise ValueError(f"U={u} does not fit one block's shared memory")
     return b, m, u
 
@@ -46,7 +47,7 @@ def noma_rate(contrib, sig, group_end, inter, bw):
     b, m, u = _check(contrib, sig, group_end, inter, bw)
     if contrib.device.type == "cpu":
         return noma_rate_ref(contrib, sig, group_end, inter, bw)
-    # the kernel's in-group walk needs equal keys in consecutive positions
+    # the kernel's segmented scan needs equal keys in consecutive positions
     if bool((group_end[..., 1:] < group_end[..., :-1]).any()):
         raise ValueError("noma_rate kernel needs non-decreasing group keys "
                          "along each channel row")

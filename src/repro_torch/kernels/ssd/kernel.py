@@ -10,13 +10,22 @@ x's dtype with N contiguous.  P in (32, 64), N in (32, 64, 128),
 is masked as if padded with dt = 0).  Returns y (Bt, L, H, P) in x's
 dtype and the final state (Bt, H, P, N) float32.  CUDA tensors launch
 the kernel, CPU tensors take the plain version
-(``ref.ssd_chunked``).  ``ssd_scan.launches`` counts kernel launches.
+(``ref.ssd_chunked``).
 
 What bounds it on an H100 is the bytes of x and y at mamba2-780m's shape
-(tensor-core rate for the operations); this first kernel runs its
-float32 arithmetic on the CUDA cores with one block per (batch, head) and
-the state in shared memory, so it is operations-bound well above that
-bound (csrc/ssd.cu has the design, PERF.md the times).
+(the tensor cores' bf16 rate for the operations).  The bf16 path
+(csrc/ssd.cu has the design, PERF.md the times) is the Mamba-2 paper's
+SSD algorithm in three launches on the tensor cores (``mma.sync``): each
+chunk's own state, all chunks in parallel; the states passed from chunk
+to chunk in order, in place in a (Bt, nc, H, P, N) float32 scratch the
+wrapper allocates; the outputs, all chunks in parallel, with C·Bᵀ
+computed once per (batch, chunk, 64-row query tile) for a group of 8
+heads.  Every float32 operand of a product (the decay weights, the
+entering state) enters as a bf16 head plus a bf16 remainder, so y stays
+within one bf16 ulp of the float32 function.  The float32 path keeps the
+first port's CUDA-core kernel (one block per (batch, head) walking the
+chunks in order).  ``ssd_scan.launches`` counts calls, not the CUDA
+kernels a call runs.
 """
 from __future__ import annotations
 
@@ -86,12 +95,20 @@ def ssd_scan(x, dt, a, b, c, d, *, chunk):
     lib = _build.library()
     y = torch.empty((bt, l, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+    # the bf16 path's scratch: each chunk's own state (Bt, nc, H, P, N)
+    # float32, the entering states as bf16 head and remainder planes (the
+    # same bytes) and the chunk totals (Bt, nc, H); float32 needs none
+    nc = -(-l // chunk)
+    n_scratch = (2 * bt * nc * h * p * n + bt * nc * h
+                 if x.dtype == torch.bfloat16 else 0)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.ssd_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), d.data_ptr(), y.data_ptr(), state.data_ptr(), bt, l, h,
-        p, n, chunk, x.stride(0), x.stride(1), b.stride(0), b.stride(1),
-        c.stride(0), c.stride(1), DTYPES[x.dtype], stream)
+        c.data_ptr(), d.data_ptr(), y.data_ptr(), state.data_ptr(),
+        scratch.data_ptr() if n_scratch else None, bt, l, h, p, n, chunk,
+        x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0),
+        c.stride(1), DTYPES[x.dtype], stream)
     _build.check(status, "ssd_launch")
     ssd_scan.launches += 1
     return y, state

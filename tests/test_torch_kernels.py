@@ -59,13 +59,16 @@ SSD_CASES = [
     (2, 512, 4, 64, 128, 256, "float32"),
     (1, 128, 4, 32, 64, 64, "bfloat16"),
 ]
-# on the card: those, a ragged L (100 at chunk 32, 2000 at chunk 256) and
-# mamba2-780m's heads (H=48, P=64, N=128, chunk 256) in bf16
+# on the card: those, a ragged L (100 at chunk 32, 2000 at chunk 256),
+# mamba2-780m's heads (H=48, P=64, N=128, chunk 256) in bf16, and every
+# (P, N) instantiation of both paths with a ragged last chunk and a
+# partial query tile (L = 300 at chunk 128)
 SSD_CARD_CASES = SSD_CASES + [
     (2, 100, 4, 32, 32, 32, "float32"),
     (1, 2000, 4, 64, 128, 256, "bfloat16"),
     (2, 1024, 48, 64, 128, 256, "bfloat16"),
-]
+] + [(2, 300, 5, p, n, 128, dtype) for dtype in ("bfloat16", "float32")
+     for p in (32, 64) for n in (32, 64, 128)]
 # one bf16 ulp of the output (2^-7 of it) plus a small absolute term for
 # float32 summation order near zero; float32 outputs within 1e-4 of scale
 BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-4
@@ -282,6 +285,17 @@ def test_noma_rate_wrapper_checks_operands(rate_case):
     bad[2] = bad[2].to(torch.int64)
     with pytest.raises(ValueError, match="dtype"):
         noma_rate(*bad)
+
+
+def test_noma_rate_wrapper_checks_shared_memory_rows():
+    """One block holds a channel's contrib and key rows plus the scan's
+    carries: the first U past that raises, on any device."""
+    from repro_torch.kernels.noma_rate import kernel as nk
+    u = (nk.SMEM_LIMIT - nk.SCAN_SMEM) // 8 + 1
+    ops = [torch.zeros((1, 1, u)) for _ in range(4)]
+    ops[2] = torch.zeros((1, 1, u), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        noma_rate(*ops, torch.ones(1))
 
 
 # ------------------------------------------------------------ on a card
@@ -753,27 +767,36 @@ def test_ssd_wrapper_checks_operands():
             ssd_scan(x, dt, a, b, c, d, chunk=chunk)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype", SSD_CARD_CASES)
-def test_ssd_kernel_matches_plain(cuda_device, bt, l, h, p, n, chunk,
-                                  dtype):
-    """The kernel against its plain chunked version on the same inputs:
-    float32 within 1e-4 of max |y| and of max |state|; bf16 inputs
-    against the plain version in float32, y within one bf16 ulp of the
-    output (2^-7 rel + 1e-4 abs).  Repeats are bit-identical."""
-    dt_ = getattr(torch, dtype)
-    x, dts, a, b, c, d = (torch.as_tensor(v).to(cuda_device) for v in
-                          _ssd_inputs(bt, l, h, p, n, seed=l))
-    x, b, c = x.to(dt_), b.to(dt_), c.to(dt_)
-    before = ssd_scan.launches
+# bf16 unless named: id, (bt, l, h, p, n, chunk)
+SSD_EDGE_CASES = {
+    "L1": (2, 1, 4, 64, 128, 256),
+    "L_chunk": (2, 256, 8, 64, 128, 256),
+    "L_chunk_plus_1": (2, 257, 8, 64, 128, 256),
+    "chunk32": (2, 200, 4, 32, 64, 32),
+    "chunk100": (1, 350, 9, 64, 32, 100),
+    "ragged": (2, 1000, 8, 64, 128, 128),
+    "overflow": (1, 512, 4, 64, 128, 256),
+    "dt_zero_rows": (2, 600, 4, 64, 64, 256),
+    "strided_views": (2, 300, 8, 64, 128, 128),
+}
+
+
+def _ssd_check_kernel(args, chunk, dtype):
+    """The kernel on ``args`` (numpy float32 x, dt, a, b, c, d; x, b, c
+    cast to ``dtype`` on the card) against its plain chunked version in
+    float32 on the same bits: float32 y within 1e-4 of max |y|, bf16 y
+    within one bf16 ulp (2^-7 rel + 1e-4 abs); the state within 1e-4 of
+    max |state|; a repeat bit-identical."""
+    x, dts, a, b, c, d = args
     y, s = ssd_ops.ssd(x, dts, a, b, c, d, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
-    assert y.dtype == dt_ and y.shape == x.shape
-    assert s.dtype == torch.float32 and s.shape == (bt, h, p, n)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert s.dtype == torch.float32 and s.shape == (x.shape[0], x.shape[2],
+                                                    x.shape[3], b.shape[-1])
     y32, s32 = ssd_ref.ssd_chunked(x.float(), dts, a, b.float(), c.float(),
-                                   d, chunk=min(chunk, l))
-    if dtype == "float32":
+                                   d, chunk=min(chunk, x.shape[1]))
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all())
+    if dtype == torch.float32:
         torch.testing.assert_close(y, y32, rtol=0,
                                    atol=1e-4 * float(y32.abs().max()))
     else:
@@ -783,3 +806,100 @@ def test_ssd_kernel_matches_plain(cuda_device, bt, l, h, p, n, chunk,
                                atol=1e-4 * float(s32.abs().max()))
     y2, s2 = ssd_ops.ssd(x, dts, a, b, c, d, chunk=chunk)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,h,p,n,chunk,dtype", SSD_CARD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, bt, l, h, p, n, chunk,
+                                  dtype):
+    """The kernel against its plain chunked version on the same inputs
+    (``_ssd_check_kernel``'s bars), one launch count per call."""
+    dt_ = getattr(torch, dtype)
+    x, dts, a, b, c, d = (torch.as_tensor(v).to(cuda_device) for v in
+                          _ssd_inputs(bt, l, h, p, n, seed=l))
+    before = ssd_scan.launches
+    _ssd_check_kernel((x.to(dt_), dts, a, b.to(dt_), c.to(dt_), d), chunk,
+                      dt_)
+    assert ssd_scan.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_EDGE_CASES))
+def test_ssd_kernel_edges(cuda_device, case):
+    """The bf16 kernel at its edges: L = 1, L = chunk and chunk + 1, chunks
+    below the 64-row query tile (32, 100; H=9 leaves a partial head
+    group), a ragged L, A = -48 with large dt (every exponent would
+    overflow unless only non-positive differences are exponentiated), rows
+    and a whole chunk with dt = 0, and x, B and C as slices of one wider
+    tensor (the model's conv output)."""
+    bt, l, h, p, n, chunk = SSD_EDGE_CASES[case]
+    x, dts, a, b, c, d = (torch.as_tensor(v).to(cuda_device) for v in
+                          _ssd_inputs(bt, l, h, p, n, seed=l + h))
+    if case == "overflow":
+        a = torch.full_like(a, -48.0)
+        dts = dts * 50.0                  # dt ~ 5: cs reaches -6e4
+    if case == "dt_zero_rows":
+        dts[:, ::3] = 0.0
+        dts[:, 256:512] = 0.0
+    x, b, c = (v.to(torch.bfloat16) for v in (x, b, c))
+    if case == "strided_views":
+        di = h * p
+        xbc = torch.cat([x.reshape(bt, l, di), b, c,
+                         torch.zeros(bt, l, 8, dtype=x.dtype,
+                                     device=cuda_device)], dim=-1)
+        x = xbc[..., :di].reshape(bt, l, h, p)
+        b, c = xbc[..., di:di + n], xbc[..., di + n:di + 2 * n]
+        assert not (x.is_contiguous() or b.is_contiguous())
+    before = ssd_scan.launches
+    _ssd_check_kernel((x, dts, a, b, c, d), chunk, torch.bfloat16)
+    assert ssd_scan.launches == before + 2
+
+
+def _noma_rows(case, rng):
+    """(B, M, U) SIC operands at the segmented scan's edges; the last
+    position of every group gets a tiny inter (1e-30), so a suffix that
+    is not exactly 0.0 there would move its rate by orders of
+    magnitude."""
+    b, m, u = {"singletons": (2, 5, 300), "one_group": (1, 4, 1250),
+               "ragged77": (2, 6, 77), "ragged1000": (1, 3, 1000),
+               "zero_contrib": (2, 4, 300)}[case]
+    if case == "singletons":
+        sizes = [1] * u
+    elif case == "one_group":
+        sizes = [u]
+    else:
+        sizes = []
+        while sum(sizes) < u:
+            sizes.append(int(min(rng.integers(1, 60), u - sum(sizes))))
+    gend = np.repeat(np.cumsum(sizes) - 1, sizes).astype(np.int32)
+    contrib = rng.exponential(size=(b, m, u)).astype(np.float32)
+    if case == "zero_contrib":
+        contrib[:] = 0.0
+    sig = rng.exponential(size=(b, m, u)).astype(np.float32)
+    inter = (rng.exponential(size=(b, m, u)) + 0.1).astype(np.float32)
+    last = np.r_[gend[1:] != gend[:-1], True]
+    inter[..., last] = 1e-30
+    bw = rng.uniform(1.0, 3.0, size=b).astype(np.float32)
+    return (contrib, sig, np.broadcast_to(gend, (b, m, u)).copy(), inter,
+            bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["singletons", "one_group", "ragged77",
+                                  "ragged1000", "zero_contrib"])
+def test_noma_rate_kernel_segment_edges(cuda_device, case):
+    """The segmented suffix scan at its edges (singleton groups, one group
+    a row, U not a multiple of the 256-thread block, all-zero
+    contributions), held to the plain masked matvec as the other noma_rate
+    card test holds it (1e-5 relative plus 1e-5 of the max: the two sum a
+    group of up to 1250 terms in different orders), with bit-identical
+    repeats."""
+    args = [torch.as_tensor(v).to(cuda_device)
+            for v in _noma_rows(case, np.random.default_rng(7))]
+    before = noma_rate.launches
+    got = noma_rate(*args)
+    assert noma_rate.launches == before + 1
+    want = nref.noma_rate_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 *
+                               float(want.abs().max()))
+    assert torch.equal(got, noma_rate(*args))
