@@ -4,31 +4,20 @@ layer spec.  Three entry points per block: ``forward`` (full sequence),
 cache).
 
 Mixers: attention and local attention (``attention``), the RG-LRU
-(``rglru``) and the Mamba-2 SSD (``ssm``).  The "moe" FFN is not ported
-yet: it raises ``NotImplementedError`` naming its ROADMAP item.
+(``rglru``) and the Mamba-2 SSD (``ssm``).  FFNs: dense (``ffn``) and the
+mixture of experts (``moe``), whose router aux loss ``forward`` and
+``prefill`` return and ``decode`` drops, as the JAX package's blocks do.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, rglru, ssm
+from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import Params, dtype_of, rms_norm
 
-_NOT_PORTED = {
-    "moe": "the 'moe' FFN (models/moe.py) is not ported yet: it waits for "
-           "the 'MoE' item of ROADMAP.md's queue of modules to port",
-}
-
-
-def _check_spec(spec):
-    for part in spec:
-        if part in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[part])
-
 
 def init(generator, cfg, spec, device):
-    _check_spec(spec)
     mixer, ffn_kind = spec
     dt = dtype_of(cfg)
     norm = (lambda: torch.zeros((cfg.d_model,), dtype=dt, device=device)) \
@@ -45,7 +34,8 @@ def init(generator, cfg, spec, device):
         raise ValueError(mixer)
     if ffn_kind != "none":
         p["norm2"] = norm()
-        p["ffn"] = ffn_mod.init(generator, cfg, device)
+        p["ffn"] = (moe.init(generator, cfg, device) if ffn_kind == "moe"
+                    else ffn_mod.init(generator, cfg, device))
     return Params(**p)
 
 
@@ -59,7 +49,11 @@ def _apply_ffn(params, cfg, spec, x):
     if ffn_kind == "none":
         return x, 0.0
     h = _norm(cfg, x, params.norm2)
-    return x + ffn_mod.forward(params.ffn, cfg, h), 0.0
+    if ffn_kind == "moe":
+        y, aux = moe.forward(params.ffn, cfg, h)
+    else:
+        y, aux = ffn_mod.forward(params.ffn, cfg, h), 0.0
+    return x + y, aux
 
 
 def forward(params, cfg, spec, x, positions, impl="kernel"):
@@ -67,7 +61,6 @@ def forward(params, cfg, spec, x, positions, impl="kernel"):
     ``impl`` picks the attention path (``attention.IMPLS``) and the SSD
     scan (``"kernel"``, else the plain chunked scan: ``ssm``'s
     docstring); the RG-LRU mixer has one path (``rglru``'s docstring)."""
-    _check_spec(spec)
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
@@ -86,7 +79,6 @@ def forward(params, cfg, spec, x, positions, impl="kernel"):
 # caches
 # --------------------------------------------------------------------------- #
 def init_cache(cfg, spec, batch, max_seq, dtype=None, *, device):
-    _check_spec(spec)
     mixer, _ = spec
     if mixer in ("attn", "local"):
         return attention.init_cache(cfg, batch, max_seq, mixer=mixer,
@@ -100,7 +92,6 @@ def init_cache(cfg, spec, batch, max_seq, dtype=None, *, device):
 
 def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel"):
     """Like forward, but also returns the decode cache."""
-    _check_spec(spec)
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
@@ -118,7 +109,6 @@ def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel"):
 
 def decode(params, cfg, spec, x, pos, cache):
     """Single-token step. x (B,1,D); pos: the absolute position (int)."""
-    _check_spec(spec)
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):

@@ -1,7 +1,7 @@
 """Top-level decoder model: embedding -> one block per layer -> final norm
--> LM head, for every architecture of ``repro_torch.configs`` whose blocks
-are ported (attention, local attention, RG-LRU and Mamba-2 SSD mixers;
-dense FFNs).
+-> LM head, for every architecture of ``repro_torch.configs`` (attention,
+local attention, RG-LRU and Mamba-2 SSD mixers; dense and
+mixture-of-experts FFNs).
 
 The model is a ``Params`` module: ``embed``, ``layers`` (an
 ``nn.ModuleList`` with one block per layer, where the JAX package stacks
@@ -30,8 +30,6 @@ def init(generator: torch.Generator, cfg, device=None) -> Params:
     own generator on ``device``), on ``device`` (default: the card; raises
     without one)."""
     device = resolve_device(device)
-    for spec in set(cfg.layer_specs):
-        blocks._check_spec(spec)
     dt = dtype_of(cfg)
     vp, d = cfg.padded_vocab, cfg.d_model
     if cfg.n_codebooks > 1:

@@ -67,7 +67,7 @@ SOLVE sees; the posted values (``current_q``) are preserved and a new
 arrival resets the user's age to zero.
 
 Telemetry (``bus=``, optional, duck-typed: anything with
-``emit(name, **fields)``; the telemetry bus itself is not ported yet):
+``emit(name, **fields)``, such as ``repro_torch.telemetry.TelemetryBus``):
 every round phase is emitted — ``admission_round``
 (arrival/touched/solved counts, solver wall time and iterations,
 per-phase durations), per-cell
@@ -77,8 +77,8 @@ effective aged threshold — the paper's QoE target, finally measured),
 exceptions.  With no bus attached every emit site is a single
 ``is not None`` check — the no-telemetry path allocates nothing.
 
-QoS governor (``governor=``, optional, duck-typed; the governor itself
-is not ported yet): consulted between DRAIN and SOLVE.  Cells it defers
+QoS governor (``governor=``, optional, duck-typed, such as
+``repro_torch.serving.governor.QoSGovernor``): consulted between DRAIN and SOLVE.  Cells it defers
 are NOT solved this round; their queued work is carried in a
 controller-side deferred set and merged into the next
 round's dirty set, so nothing is lost — deferral trades schedule

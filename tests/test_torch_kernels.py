@@ -575,7 +575,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, s, h, kh, d,
 
 # the bf16 tensor-core kernel's tile edges (128 query rows, 64 keys):
 # S = 1, 77, 1000; windows 16, 100, 2048 (inside, across, beyond a tile);
-# GQA groups 1, 2, 8; D = 64, 128, 256.  b, s, h, kh, d, window
+# GQA groups 1, 2, 6 (mixtral-8x22b's 48 over 8), 8; D = 64, 128, 256.
+# b, s, h, kh, d, window
 FLASH_EDGE_CASES = [
     (1, 1, 8, 1, 256, 2048),
     (2, 77, 4, 2, 64, 16),
@@ -585,6 +586,8 @@ FLASH_EDGE_CASES = [
     (1, 1000, 4, 2, 64, 2048),
     (1, 1000, 8, 1, 256, 0),
     (1, 300, 8, 8, 256, 2048),
+    (1, 1000, 12, 2, 128, 300),
+    (2, 600, 48, 8, 128, 256),
 ]
 
 

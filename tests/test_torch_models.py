@@ -29,15 +29,18 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
 
 CPU = "cpu"
-# the six model cases: the hybrid at its tiny depth (one full pattern
+# the eight model cases: the hybrid at its tiny depth (one full pattern
 # unit) and at depth 5 (a unit plus a (rec, rec) tail), three
-# attention-only families and the SSM; S=96 makes the tiny window of 64
-# bind and is three chunks of the tiny mamba2's 32
+# attention-only families, the SSM and the two mixtures of experts; S=96
+# makes the tiny window of 64 bind (mixtral's sliding window too) and is
+# three chunks of the tiny mamba2's 32
 MODEL_CASES = [("recurrentgemma-2b", {}),
                ("recurrentgemma-2b", {"n_layers": 5}),
                ("gemma-2b", {}), ("gemma3-12b", {}), ("llama3-8b", {}),
-               ("mamba2-780m", {})]
-MODEL_IDS = ["rg2b", "rg2b-l5", "gemma2b", "gemma3", "llama3", "mamba2"]
+               ("mamba2-780m", {}), ("mixtral-8x22b", {}),
+               ("dbrx-132b", {})]
+MODEL_IDS = ["rg2b", "rg2b-l5", "gemma2b", "gemma3", "llama3", "mamba2",
+             "mixtral", "dbrx"]
 SEQ = 96
 
 
@@ -372,19 +375,24 @@ def test_model_from_numpy_keeps_ssm_dtypes():
 @pytest.mark.parametrize("impl", ["naive", "kernel"])
 def test_full_model_logits_match_jax(model_case, impl):
     jcfg, cfg, jparams, model, tokens = model_case
-    want, _ = JT.forward(jparams, jcfg, tokens)
+    want, jaux = JT.forward(jparams, jcfg, tokens)
     got, aux = T.forward(model, cfg, torch.as_tensor(tokens), impl=impl)
-    assert got.dtype == torch.float32 and aux == 0.0
+    assert got.dtype == torch.float32
+    if cfg.arch_type != "moe":
+        assert aux == 0.0
+    # the MoE router's aux loss, summed over the layers
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-5)
     _scaled_close(_np(got), want, 1e-4, impl)
 
 
 def test_prefill_decode_tokens_match_jax(model_case):
     jcfg, cfg, jparams, model, tokens = model_case
     n_steps, s = 5, tokens.shape[1]
-    jl, jc, _ = JT.prefill(jparams, jcfg, tokens, max_seq=s + n_steps + 1)
-    lg, c, _ = T.prefill(model, cfg, torch.as_tensor(tokens),
-                         max_seq=s + n_steps + 1, impl="kernel")
+    jl, jc, jaux = JT.prefill(jparams, jcfg, tokens, max_seq=s + n_steps + 1)
+    lg, c, aux = T.prefill(model, cfg, torch.as_tensor(tokens),
+                           max_seq=s + n_steps + 1, impl="kernel")
     _scaled_close(_np(lg), jl, 1e-4, "prefill logits")
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-5)
     jcur = jnp.argmax(jl[:, -1], -1)
     cur = torch.argmax(lg[:, -1], -1)
     np.testing.assert_array_equal(_np(cur), np.asarray(jcur))
@@ -398,8 +406,12 @@ def test_prefill_decode_tokens_match_jax(model_case):
 
 def test_decode_from_empty_caches_matches_forward(model_case):
     """Decoding token by token from ``init_caches`` gives the full
-    forward's logits at every position."""
+    forward's logits at every position.  An MoE FFN's capacity follows the
+    token count (GShard: 12 tokens in the forward, 2 per decode step), so
+    there the capacity factor is raised until no slot drops in either."""
     jcfg, cfg, jparams, model, tokens = model_case
+    if cfg.arch_type == "moe":
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
     toks = torch.as_tensor(tokens[:, :6])
     full, _ = T.forward(model, cfg, toks)
     caches = T.init_caches(cfg, 2, 8, device=CPU)
@@ -444,15 +456,22 @@ def test_musicgen_and_vlm_embeddings_match_jax():
         _scaled_close(_np(got), want, 1e-4, name)
 
 
-def test_unported_families_raise():
-    """The MoE families still raise; mamba2 (ported) builds."""
-    for name in ("mixtral-8x22b", "dbrx-132b"):
-        cfg = configs.get_tiny_config(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init(torch.Generator().manual_seed(0), cfg, CPU)
-    cfg = configs.get_tiny_config("mamba2-780m")
+@pytest.mark.parametrize("name", configs.list_architectures())
+def test_every_family_builds_and_runs_on_cpu(name):
+    """Every registered family, the two MoE ones included, builds from
+    ``transformer.init`` on the CPU and runs one forward to finite
+    logits."""
+    cfg = configs.get_tiny_config(name)
     model = T.init(torch.Generator().manual_seed(0), cfg, CPU)
     assert len(model.layers) == cfg.n_layers
+    shape = (2, cfg.n_codebooks, 32) if cfg.n_codebooks > 1 else (2, 32)
+    toks = torch.randint(0, cfg.vocab_size, shape,
+                         generator=torch.Generator().manual_seed(1))
+    logits, aux = T.forward(model, cfg, toks)
+    assert logits.shape[:2] == (2, 32)
+    assert logits.shape[-1] == cfg.padded_vocab
+    assert bool(torch.isfinite(logits).all())
+    assert (float(aux) > 0) == (cfg.arch_type == "moe")
 
 
 # --------------------------------------------------------------- profiles

@@ -319,6 +319,39 @@ def test_multicell_serve_round_matches_jax(name):
     assert {len(g) for g in mixed[0].groups().values()} != {U}
 
 
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_serve_round_matches_jax(name):
+    """The MoE families through one lockstep ``serve_round`` on both
+    engines (solve, install, execute, decode 3 steps): equal splits and
+    tokens.  Decode runs 12 tokens a step, so its capacity (6 slots an
+    expert) drops slots, in both."""
+    jcfg, cfg, jparams, model = _tiny_model(name)
+    s = 16
+    jp = jprof.transformer_profile(jcfg, seq=s)
+    prof = profiles.transformer_profile(cfg, seq=s, device="cpu")
+    jscns = [_jscn(20 + i) for i in range(2)]
+    jsch = jsched.MultiCellScheduler(
+        jscns, jp, spec=jligd.SolverSpec(step_impl="fused", **SPEC))
+    sch = scheduler.MultiCellScheduler(
+        [pb.scenario(x) for x in jscns], prof, spec=ligd.SolverSpec(**SPEC))
+    jeng = jengine.MultiCellServeEngine(jparams, jcfg, jscns, jsch)
+    eng = MultiCellServeEngine(model, cfg, sch.scns, sch)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, U, s)).astype(np.int32)
+    q = np.full((2, U), 0.05, np.float32)
+    want = jeng.serve_round(toks, q, decode_steps=3)
+    got = eng.serve_round(toks, q, decode_steps=3)
+    for b in range(2):
+        np.testing.assert_array_equal(
+            eng.current_schedules().schedules[b].split,
+            jeng.current_schedules().schedules[b].split)
+        for g, w in zip(got[b], want[b]):
+            assert g.user == w.user
+            np.testing.assert_array_equal(g.tokens_out, w.tokens_out)
+            np.testing.assert_allclose(g.latency_s, w.latency_s, rtol=1e-5)
+            _assert_result(g, 3)
+
+
 def test_config_compatible_with_jax_dataclass():
     cfg = jnet.small_config(n_users=U, n_subchannels=M)
     assert dataclasses.asdict(network.small_config(n_users=U,
