@@ -94,8 +94,38 @@ each with its timings:
  14. launcher   ``repro_torch.launch.serve.main`` on the card: the async
                 cluster with the governor, churn and a trace on the tiny
                 mixtral (the trace holds bootstrap, admission_round,
-                serve_round, cell_join and cell_leave), then the one-cell
-                mode on the tiny dbrx
+                serve_round, cell_join and cell_leave), the one-cell mode
+                on the tiny dbrx, and ``--backend sharded --cells 3`` on
+                the tiny mixtral
+ 15. baselines  the paper's Figs. 12–13 on one paper-width cell (yolov2):
+                ERA (``ligd.solve``, 400 steps) and every baseline of
+                ``baselines.run_all`` at 0.6, 0.9 and 1.2 x ERA's mean
+                latency at a loose (1 s) budget; per method Γ, mean delay
+                and energy, users over their threshold, average
+                exceedance and wall time; every Γ finite, Device-Only all
+                at F, Edge-Only's feasible users at 0, Γ_ERA <= 1.15 x
+                each baseline's; DNN-Surgery and IAO (at the cut budget)
+                with the fused and the autograd step, held to each other
+                with phase 5's bar
+ 16. sharded    B=3 paper-width cells (100 GD steps, stop tolerance 1e-3)
+                with ``backend="sharded"`` over ``cells_mesh()`` (one
+                shard on the card) and over (cuda:0, cuda:0), held to
+                ``backend="chunked"``: equal
+                splits and iteration counts, Γ within rtol 1e-5; each
+                shard's era_step launches equal its own lanes' GD
+                iterations (each shard stops on its own); the sorted lane
+                placement twice, its splits, iterations and allocations
+                bitwise the 'none' placement's and Γ within rtol 1e-5
+                (bitwise where a lane keeps its position in its shard)
+ 17. multihost  ``backend="multihost"`` in one process bitwise
+                ``backend="sharded"``; then two processes in a gloo group,
+                2 paper-width lanes each on cuda:0, each bitwise equal to
+                its lanes of the single-process two-shard sharded solve of
+                all 4; 0 collective bytes in each process's sweep; a
+                fenced cluster lifecycle (add_cell, move_user,
+                remove_cell, one round) across them at a small config,
+                and a divergent fence tag raising in both.  The children
+                load the library phase 2 built.
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -114,6 +144,8 @@ import io
 import json
 import os
 import re
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -168,6 +200,22 @@ MOE_PLAIN_ROWS = 2
 MOE_FLIP_MAX = 0.01
 # the load generator (phase 13): arrivals pushed per run
 LOAD_USERS, MOBILITY_USERS = 5000, 2000
+# phases 16–17 and phase 15's fused-against-autograd IAO: the GD step
+# budget at the paper's width, cut from SolverSpec's 400 to keep phases
+# 15–17 near 90 s (PERF.md §4).  Phase 15's ERA keeps 400 and run_all's
+# baselines their own budgets: ERA cut to 100 steps scores 2.6% worse
+# than IAO at its 300
+NEW_PATH_STEPS = 100
+# phases 16–17: the GD stop tolerance.  At 1e-5 (SolverSpec's default)
+# every paper-width lane runs every layer to the budget, so no shard
+# could stop before another; at this tolerance lanes stop at their own
+# steps
+SHARD_TOL = 1e-3
+# phase 15: the QoE thresholds of benchmarks/fig12_13_vs_baselines.py, as
+# multiples of ERA's mean latency at a loose (1 s) budget
+FIG12_MULTIPLES = (0.6, 0.9, 1.2)
+# phase 17: seconds a child process may take
+CHILD_TIMEOUT_S = 300
 
 
 def log(phase, **fields):
@@ -286,6 +334,407 @@ def random_alloc(era, b, u, m, device):
         p=(torch.exp(rn(b, u) * 0.3) * 0.1).to(device),
         p_ap=torch.exp(rn(b, u) * 0.3).to(device),
         r=(1.0 + torch.exp(rn(b, u) * 0.2)).to(device))
+
+
+def assert_same_solve(got, want, what, exact=False):
+    """Equal splits and iteration counts, Γ within rtol 1e-5 (``exact``:
+    every output bitwise equal)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} outcomes, not {len(want)}")
+    for b, (x, y) in enumerate(zip(got, want)):
+        if not (np.array_equal(x.s, y.s)
+                and np.array_equal(x.iters_by_layer, y.iters_by_layer)):
+            raise AssertionError(f"{what}: lane {b}'s splits or iteration "
+                                 f"counts differ")
+        if exact:
+            same = (np.array_equal(x.gamma_by_layer, y.gamma_by_layer)
+                    and all(torch.equal(a, c)
+                            for a, c in zip(x.alloc, y.alloc)))
+            if not same:
+                raise AssertionError(f"{what}: lane {b} is not bitwise "
+                                     f"equal")
+        else:
+            np.testing.assert_allclose(x.gamma_by_layer, y.gamma_by_layer,
+                                       rtol=1e-5, err_msg=f"{what} {b}")
+
+
+def gamma_rel(got, want):
+    return max(float(np.max(np.abs(x.gamma_by_layer - y.gamma_by_layer)
+                            / np.abs(y.gamma_by_layer)))
+               for x, y in zip(got, want))
+
+
+def phase_baselines(dev, by_path):
+    """Phase 15: the paper's Figs. 12–13 on the card (module docs)."""
+    from repro_torch.core import baselines, ligd, network, profiles, qoe
+    from repro_torch.kernels.era_step.kernel import era_step_fused
+    t_phase = time.perf_counter()
+    cfg, (scn,) = paper_cells(network, 1, dev)
+    prof = profiles.get_profile("yolov2", device=dev)
+    u, f = cfg.n_users, prof.n_layers
+    spec = ligd.SolverSpec(backend="chunked")
+    era_step_fused.launches = 0
+    t0 = time.perf_counter()
+    loose = ligd.solve(scn, prof, torch.full((u,), 1.0, device=dev),
+                       spec=spec)
+    nominal = float(loose.terms.t.mean())
+    t_loose = time.perf_counter() - t0
+    table = {}
+    for mult in FIG12_MULTIPLES:
+        q = torch.full((u,), nominal * mult, device=dev)
+        runs = [("era", lambda: ligd.solve(scn, prof, q, spec=spec))]
+        runs += [(name, lambda fn=fn: fn(scn, prof, q))
+                 for name, fn in baselines.ALL_BASELINES.items()]
+        rows = {}
+        for name, fn in runs:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_over, sum_over = qoe.violations(out.terms.t, q)
+            rows[name] = dict(
+                gamma=float(out.terms.gamma), delay_s=float(out.terms.t.mean()),
+                energy_j=float(out.terms.e.mean()),
+                users_over=int(n_over), avg_exceed=float(sum_over) / u / nominal,
+                wall_s=round(wall, 3), out=out)
+        table[mult] = rows
+        log("baselines", threshold=f"{mult}x{nominal:.6f}s", **{
+            name: json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                              for k, v in r.items() if k != "out"}
+                             ).replace(" ", "")
+            for name, r in rows.items()})
+    by_path["era_step"]["baselines"] = era_step_fused.launches
+    for mult, rows in table.items():
+        era_g = rows["era"]["gamma"]
+        for name, r in rows.items():
+            if not np.isfinite(r["gamma"]):
+                raise AssertionError(f"{name} at {mult}x: Γ not finite")
+            if name != "era" and not era_g <= 1.15 * r["gamma"]:
+                raise AssertionError(f"Γ_ERA {era_g} > 1.15 x {name}'s "
+                                     f"{r['gamma']} at {mult}x")
+        if not (rows["device_only"]["out"].s == f).all():
+            raise AssertionError("Device-Only has a split other than F")
+        edge = rows["edge_only"]["out"].s
+        if not (edge[edge != f] == 0).all():
+            raise AssertionError("an Edge-Only feasible user is not at 0")
+    # DNN-Surgery and IAO with the fused and the autograd step at the
+    # middle threshold, held to each other with phase 5's bar; IAO at the
+    # phase's budget (its autograd step takes ~0.14 s a step at this width)
+    mult = FIG12_MULTIPLES[1]
+    q = torch.full((u,), nominal * mult, device=dev)
+    step_bar = {}
+    for name, kw in (("dnn_surgery", {}),
+                     ("iao", {"max_steps": NEW_PATH_STEPS})):
+        fn = baselines.ALL_BASELINES[name]
+        x = fn(scn, prof, q, **kw)
+        t0 = time.perf_counter()
+        y = fn(scn, prof, q, step_impl="autograd", **kw)
+        torch.cuda.synchronize()
+        autograd_s = time.perf_counter() - t0
+        rel = abs(float(x.terms.gamma) - float(y.terms.gamma)) \
+            / abs(float(y.terms.gamma))
+        step_bar[name] = dict(splits_equal=bool(np.array_equal(x.s, y.s)),
+                              iters=[x.iters, y.iters],
+                              gamma_rel_err=float(f"{rel:.3e}"),
+                              autograd_s=round(autograd_s, 3))
+        if not (np.array_equal(x.s, y.s) and x.iters == y.iters
+                and rel <= 1e-4):
+            raise AssertionError(f"{name}: fused and autograd steps differ "
+                                 f"beyond phase 5's bar: {step_bar[name]}")
+    if by_path["era_step"]["baselines"] <= 0:
+        raise AssertionError("era_step was not launched by the baselines")
+    log("baselines_check", cell=f"U{u}xM{cfg.n_subchannels}xN{cfg.n_aps}",
+        profile="yolov2", era_max_steps=spec.max_steps,
+        step_kinds_max_steps=NEW_PATH_STEPS,
+        nominal_delay_s=f"{nominal:.6f}", loose_era_s=f"{t_loose:.3f}",
+        gamma_era_le_1_15x=True,
+        fused_vs_autograd=json.dumps(step_bar).replace(" ", ""),
+        launches=by_path["era_step"]["baselines"],
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_sharded(dev, by_path):
+    """Phase 16: the sharded backend on the card (module docs).  Returns
+    the cells, profile, thresholds and the one-shard outcomes, which
+    phase 17 holds the multihost backend to."""
+    from repro_torch.core import ligd, network, profiles
+    from repro_torch.distributed import solver_mesh
+    from repro_torch.kernels.era_step.kernel import era_step_fused
+    t_phase = time.perf_counter()
+    cfg, scns = paper_cells(network, 3, dev)
+    prof = profiles.get_profile("yolov2", device=dev)
+    q = torch.full((3, cfg.n_users), 0.4, device=dev)
+    base = ligd.SolverSpec(backend="chunked", per_user_split=False,
+                           max_steps=NEW_PATH_STEPS, tol=SHARD_TOL)
+    t0 = time.perf_counter()
+    ref = ligd.solve_batch(scns, prof, q, spec=base)
+    t_ref = time.perf_counter() - t0
+    one = solver_mesh.cells_mesh()
+    two = solver_mesh.cells_mesh(2, device=dev)
+    sharded = base.replace(backend="sharded")
+    era_step_fused.launches = 0
+    t0 = time.perf_counter()
+    sh1 = ligd.solve_batch(scns, prof, q, spec=sharded.replace(mesh=one))
+    t_sh1 = time.perf_counter() - t0
+    # each shard's launches, counted around its own sweep
+    shard_launches = []
+    sweep = ligd._sweep_core
+
+    def counted(*a, **kw):
+        n0 = era_step_fused.launches
+        out = sweep(*a, **kw)
+        shard_launches.append(era_step_fused.launches - n0)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ligd, "_sweep_core", counted):
+        sh2 = ligd.solve_batch(scns, prof, q, spec=sharded.replace(mesh=two))
+    t_sh2 = time.perf_counter() - t0
+    assert_same_solve(sh1, ref, "sharded, one shard, against chunked")
+    assert_same_solve(sh2, ref, "sharded, two shards, against chunked")
+    # a shard's GD loop runs until ITS slowest lane stops, rounded up to
+    # the chunk: the launches its own lanes need (lanes 0-1 and 2-2pad)
+    chunk = sharded.check_every
+    iters = np.stack([o.iters_by_layer for o in sh2])
+    need = [int(np.minimum(-(-iters[lanes].max(axis=0) // chunk) * chunk,
+                           NEW_PATH_STEPS).sum())
+            for lanes in ([0, 1], [2])]
+    if shard_launches != need:
+        raise AssertionError(f"shard launches {shard_launches}, their own "
+                             f"lanes need {need}")
+    lockstep = int(np.minimum(-(-iters.max(axis=0) // chunk) * chunk,
+                              NEW_PATH_STEPS).sum())
+    srt = sharded.replace(mesh=two, lane_placement="sorted")
+    ligd.reset_lane_history()
+    t0 = time.perf_counter()
+    ligd.solve_batch(scns, prof, q, spec=srt)
+    perm = ligd._lane_permutation(3, 2)
+    sorted_out = ligd.solve_batch(scns, prof, q, spec=srt)
+    t_sorted = time.perf_counter() - t0
+    ligd.reset_lane_history()
+    # splits, iterations and allocations bitwise; Γ bitwise for a lane at
+    # the same position in its shard, else within rtol 1e-5: torch's CUDA
+    # reductions vectorise a row of U=1250 floats only where it starts
+    # 16-byte aligned (even positions), so a lane's Γ sums depend in their
+    # last bits on its position
+    assert_same_solve(sorted_out, sh2, "sorted placement against 'none'")
+    inv = np.argsort(perm)
+    moved, gamma_bitwise = [], []
+    for b, (x, y) in enumerate(zip(sorted_out, sh2)):
+        if not all(torch.equal(a, c) for a, c in zip(x.alloc, y.alloc)):
+            raise AssertionError(f"sorted placement: lane {b}'s "
+                                 f"allocation is not bitwise 'none''s")
+        same_pos = int(inv[b]) % 2 == b % 2
+        exact = bool(np.array_equal(x.gamma_by_layer, y.gamma_by_layer))
+        if same_pos and not exact:
+            raise AssertionError(f"sorted placement: lane {b} kept its "
+                                 f"position but its Γ differs")
+        moved.append(not same_pos)
+        gamma_bitwise.append(exact)
+    by_path["era_step"]["sharded"] = era_step_fused.launches
+    if by_path["era_step"]["sharded"] <= 0:
+        raise AssertionError("era_step was not launched by the sharded "
+                             "backend")
+    log("sharded", cells=3, shape=f"U{cfg.n_users}xM{cfg.n_subchannels}"
+        f"xN{cfg.n_aps}", profile="yolov2", max_steps=NEW_PATH_STEPS,
+        chunked_s=f"{t_ref:.3f}", one_shard_s=f"{t_sh1:.3f}",
+        two_shard_s=f"{t_sh2:.3f}",
+        tol=SHARD_TOL,
+        gamma_rel_err=f"{max(gamma_rel(sh1, ref), gamma_rel(sh2, ref)):.3e}",
+        splits_iters_equal=True, shard_launches=",".join(map(str,
+                                                              shard_launches)),
+        lockstep_launches=lockstep,
+        sorted_perm=",".join(map(str, perm)), sorted_s=f"{t_sorted:.3f}",
+        sorted_moved=",".join(map(str, moved)),
+        sorted_gamma_bitwise=",".join(map(str, gamma_bitwise)),
+        sorted_gamma_rel_err=f"{gamma_rel(sorted_out, sh2):.3e}",
+        lane_iters=",".join(str(o.total_iters) for o in sh2),
+        launches=by_path["era_step"]["sharded"],
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return scns, prof, q, base, sh1
+
+
+# phase 17's child: 2 of 4 paper-width lanes on cuda:0 in a gloo group of
+# two, then a fenced cluster lifecycle at a small config.  It loads the
+# library phase 2 built and imports nothing of JAX.
+MH_CHILD = r"""
+import json, os, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+from repro_torch.kernels import _build
+if not _build.lib_path().exists():
+    sys.exit("the kernel library is not built: the parent builds it")
+from repro_torch.distributed import multihost
+info = multihost.initialize_from_env()
+assert info.n_processes == 2 and dist.get_backend() == "gloo", info
+pid = info.process_id
+from repro_torch.core import era, ligd, network, profiles
+from repro_torch.kernels.era_step.kernel import era_step_fused
+from repro_torch.kernels.noma_rate.kernel import noma_rate
+from repro_torch.serving.cluster import SplitInferenceCluster
+dev = torch.device("cuda", 0)
+steps, chunk, seed = (int(os.environ[k]) for k in
+                      ("MH_STEPS", "MH_GD_CHUNK", "MH_SEED"))
+tol = float(os.environ["MH_TOL"])
+cfg = network.NetworkConfig()
+lo, hi = multihost.lane_slice(2)
+scns = [network.make_scenario(torch.Generator().manual_seed(seed + g), cfg,
+                              dev) for g in range(lo, hi)]
+prof = profiles.get_profile("yolov2", device=dev)
+q = torch.full((2, cfg.n_users), 0.4, device=dev)
+spec = ligd.SolverSpec(backend="multihost", per_user_split=False,
+                       max_steps=steps, gd_chunk=chunk, tol=tol)
+t0 = time.perf_counter()
+outs = ligd.solve_batch(scns, prof, q, spec=spec)
+torch.cuda.synchronize()
+solve_s = time.perf_counter() - t0
+np.savez(os.path.join(os.environ["MH_DIR"], f"lanes_{pid}.npz"),
+         gamma=np.stack([o.gamma_by_layer for o in outs]),
+         iters=np.stack([o.iters_by_layer for o in outs]),
+         s=np.stack([o.s for o in outs]),
+         **{f: np.stack([getattr(o.alloc, f).cpu().numpy() for o in outs])
+            for f in era.Allocation._fields})
+prep = ligd.prepare_batch(scns, prof, True)
+cost = multihost.sweep_collective_cost(
+    spec.run_mesh(), prep.scn_b, q, era.uniform_alloc(prep.scn_b),
+    prep.pred_b, spec.lr, spec.tol, 5, era.Weights(), prep.prof_b)
+assert cost.total_coll_bytes == 0.0 and cost.coll_bytes == {}, cost
+fence = multihost.collective_cost(lambda: multihost.churn_fence("audit"))
+assert fence.total_coll_bytes > 0, fence
+small = network.small_config(n_users=12, n_subchannels=6)
+nin = profiles.get_profile("nin", device=dev)
+scn = lambda g: network.make_scenario(torch.Generator().manual_seed(g),
+                                      small, dev)
+cl = SplitInferenceCluster(None, None, nin, spec=spec.replace(max_steps=40),
+                           device=dev)
+ids = [cl.add_cell(scn(g), q0=0.4) for g in range(lo, hi)]
+cl.start(threaded=False)
+assert cl.scheduler.host_local_rounds
+cid = cl.add_cell(scn(100 + pid), q0=0.4)
+mv = cl.move_user(ids[1], cid, user=2)
+assert mv.cells == (cl.lane_of(cid),), mv
+cl.remove_cell(ids[0])
+cl.submit(cid, user=0, q_s=0.35)
+rnd = cl.step()
+assert rnd is not None and rnd.cells == (cl.lane_of(cid),), rnd
+cl.stop()
+assert not cl.errors and cl.n_cells == 2
+try:
+    multihost.churn_fence(f"remove_cell:{pid}")
+except RuntimeError as e:
+    assert "disagree" in str(e), e
+else:
+    sys.exit("divergent fence tags did not raise")
+torch.cuda.synchronize()
+print("MH_CHILD " + json.dumps(dict(
+    pid=pid, solve_s=round(solve_s, 3), coll_bytes=cost.total_coll_bytes,
+    fence_bytes=fence.total_coll_bytes, versions=cl.schedule_version,
+    era_step=era_step_fused.launches, noma_rate=noma_rate.launches)))
+dist.destroy_process_group()
+"""
+
+
+def run_children(code, n_procs, env_extra):
+    """``n_procs`` Python processes running ``code`` in one gloo group
+    (the REPRO_MH_* variables), on a port bound from port 0 (retried once
+    if it is taken meanwhile); their stdout.  A child that fails or
+    overruns fails the phase, and every child is killed then."""
+    for attempt in range(2):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        try:
+            for pid in range(n_procs):
+                env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                           REPRO_MH_COORDINATOR=f"localhost:{port}",
+                           REPRO_MH_NUM_PROCESSES=str(n_procs),
+                           REPRO_MH_PROCESS_ID=str(pid), **env_extra)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], cwd=ROOT, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            outs = [p.communicate(timeout=CHILD_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if attempt == 0 and any("address already in use" in err.lower()
+                                for _, err in outs):
+            continue
+        for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"child {pid} exited {p.returncode}:\n"
+                                     f"{out[-2000:]}\n{err[-4000:]}")
+        return [out for out, _ in outs]
+
+
+def phase_multihost(dev, by_path, sharded):
+    """Phase 17: the multihost backend on the card (module docs)."""
+    from repro_torch.core import era, ligd, network
+    from repro_torch.distributed import multihost, solver_mesh
+    from repro_torch.kernels.era_step.kernel import era_step_fused
+    from repro_torch.kernels.noma_rate.kernel import noma_rate
+    t_phase = time.perf_counter()
+    scns, prof, q, base, sh1 = sharded
+    era_step_fused.launches = 0
+    noma_rate.launches = 0
+    mh_spec = base.replace(backend="multihost")
+    if mh_spec.run_mesh() is not solver_mesh.cells_mesh():
+        raise AssertionError("the multihost mesh is not the sharded one")
+    t0 = time.perf_counter()
+    mh = ligd.solve_batch(scns, prof, q, spec=mh_spec)
+    t_mh = time.perf_counter() - t0
+    assert_same_solve(mh, sh1, "multihost against sharded, one process",
+                      exact=True)
+    parent = {"era_step": era_step_fused.launches,
+              "noma_rate": noma_rate.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = run_children(MH_CHILD, 2, {
+            "MH_DIR": tmp, "MH_STEPS": str(NEW_PATH_STEPS),
+            "MH_GD_CHUNK": str(base.gd_chunk), "MH_SEED": str(SEED),
+            "MH_TOL": repr(base.tol)})
+        t_children = time.perf_counter() - t0
+        reports = [json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith("MH_CHILD "))[9:])
+                   for out in outs]
+        lanes = [dict(np.load(os.path.join(tmp, f"lanes_{pid}.npz")))
+                 for pid in range(2)]
+    for name in ("era_step", "noma_rate"):
+        by_path[name]["multihost"] = parent[name] + sum(r[name]
+                                                        for r in reports)
+    # the single-process two-shard sharded solve of all 4 lanes: shards of
+    # 2 lanes, the shape of each child's one shard
+    cfg, cells = paper_cells(network, 4, dev)
+    q4 = torch.full((4, cfg.n_users), 0.4, device=dev)
+    ref = ligd.solve_batch(cells, prof, q4, spec=base.replace(
+        backend="sharded", mesh=solver_mesh.cells_mesh(2, device=dev)))
+    want = dict(gamma=np.stack([o.gamma_by_layer for o in ref]),
+                iters=np.stack([o.iters_by_layer for o in ref]),
+                s=np.stack([o.s for o in ref]),
+                **{f: np.stack([getattr(o.alloc, f).cpu().numpy()
+                                for o in ref])
+                   for f in era.Allocation._fields})
+    for pid, got in enumerate(lanes):
+        for k, v in want.items():
+            if not np.array_equal(v[2 * pid:2 * pid + 2], got[k]):
+                raise AssertionError(f"process {pid}'s lanes differ from "
+                                     f"the sharded solve in {k}")
+    for r in reports:
+        if r["coll_bytes"] != 0.0 or r["era_step"] <= 0:
+            raise AssertionError(f"child report {r}")
+    if by_path["era_step"]["multihost"] <= 0:
+        raise AssertionError("era_step was not launched by the multihost "
+                             "backend")
+    log("multihost", one_process_s=f"{t_mh:.3f}", bitwise_sharded=True,
+        processes=2, lanes_per_process=2, children_s=f"{t_children:.1f}",
+        children=json.dumps(reports).replace(" ", ""),
+        bitwise_two_shard_sharded=True, group_timeout_s=multihost.PG_TIMEOUT_S,
+        launches=json.dumps({n: by_path[n]["multihost"] for n in
+                             ("era_step", "noma_rate")}).replace(" ", ""),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def main():
@@ -1496,30 +1945,46 @@ def main():
     with contextlib.redirect_stdout(buf):
         rc_one = serve.main(["--arch", "dbrx-132b", "--tiny"])
     one_out = buf.getvalue().splitlines()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_sharded = serve.main(["--arch", "mixtral-8x22b", "--tiny",
+                                 "--cells", "3", "--backend", "sharded"])
+    sharded_out = buf.getvalue().splitlines()
     torch.cuda.synchronize()
     for name in ("era_step", "noma_rate", "flash_attention"):
         by_path[name]["launcher"] = KERNEL_FNS[name].launches
     missing = {"bootstrap", "admission_round", "serve_round", "cell_join",
                "cell_leave"} - streams
-    if rc_async != 0 or rc_one != 0 or missing:
-        raise AssertionError(f"the launcher exited {rc_async} and {rc_one}; "
-                             f"streams missing from its trace: {missing}")
+    if rc_async != 0 or rc_one != 0 or rc_sharded != 0 or missing:
+        raise AssertionError(f"the launcher exited {rc_async}, {rc_one} and "
+                             f"{rc_sharded}; streams missing from its "
+                             f"trace: {missing}")
+    mesh_line = "sharded solver: 1-shard cells mesh on cuda:0"
     if not (any(ln.startswith("async admission: ") for ln in async_out)
             and "telemetry summary:" in async_out
-            and one_out and one_out[0].startswith("served ")):
+            and one_out and one_out[0].startswith("served ")
+            and sharded_out and sharded_out[0] == mesh_line
+            and all(any(ln.startswith(f"[cell {b}] served ")
+                        for ln in sharded_out) for b in range(3))):
         raise AssertionError("the launcher's summary lines are missing:\n"
-                             + "\n".join(async_out + one_out))
+                             + "\n".join(async_out + one_out + sharded_out))
     summary = async_out[async_out.index("telemetry summary:") + 1:]
     log("launcher", async_run=repr(next(ln for ln in async_out
                                         if ln.startswith("async admission"))),
         summary=repr("; ".join(" ".join(ln.split()) for ln in summary
                                if ln.startswith("  "))),
         one_cell=repr(one_out[0]),
+        sharded=repr("; ".join(sharded_out[:2])),
         streams=",".join(sorted(streams)),
         launches=json.dumps({n: by_path[n]["launcher"] for n in
                              ("era_step", "noma_rate", "flash_attention")}
                             ).replace(" ", ""),
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+    # ---- 15–17. the baselines, the sharded and multihost backends --------
+    phase_baselines(dev, by_path)
+    sharded = phase_sharded(dev, by_path)
+    phase_multihost(dev, by_path, sharded)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

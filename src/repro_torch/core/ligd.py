@@ -27,6 +27,13 @@ step's static operands (``build_aux``) built once per sweep.
   ``chunked``   — reads it every ``gd_chunk`` steps (one host sync per
                   chunk); the extra steps a done lane takes are selected
                   away, so results equal ``reference``'s exactly.
+  ``sharded``   — cuts the cell axis into contiguous shards over a
+                  ``cells`` mesh (``distributed.solver_mesh``) and sweeps
+                  each shard on its own device; each shard stops when
+                  its own lanes converge;
+  ``multihost`` — the sharded sweep of THIS process's lanes inside a
+                  ``torch.distributed`` group (``distributed.multihost``):
+                  one process, bitwise ``sharded``.
 ``step_impl``: ``fused`` (the port's default — the era_step CUDA kernel on
 the card, its plain version on the CPU) or ``autograd`` (torch.autograd of
 ``era.utility``, the counterpart of the JAX package's ``xla``).
@@ -39,7 +46,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,10 +57,11 @@ from repro_torch.core.era import (Allocation, Terms, Weights, clip_alloc,
                                   uniform_alloc, utility)
 from repro_torch.core.network import env_col, tree_map
 
-_BACKENDS = ("reference", "chunked")
-_NOT_PORTED = ("sharded", "multihost")
+_BACKENDS = ("reference", "chunked", "sharded", "multihost")
+_CELL_SHARDED = ("sharded", "multihost")
 _BUCKETS = ("pow2", "exact", "full")
 _STEP_IMPLS = ("autograd", "fused")
+_PLACEMENTS = ("none", "sorted")
 
 # gd_chunk a `backend="chunked"` spec defaults to when none is given
 DEFAULT_GD_CHUNK = 8
@@ -64,10 +72,12 @@ class SolverSpec:
     """Frozen, validated description of HOW a Li-GD solve runs.
 
     Fields:
-      backend         'reference' | 'chunked' (module docs).
+      backend         'reference' | 'chunked' | 'sharded' | 'multihost'
+                      (module docs).
       gd_chunk        steps between done-flag reads; 0 on 'reference'
                       (enforced), ``DEFAULT_GD_CHUNK`` when 'chunked'
-                      leaves it at 0.
+                      leaves it at 0; 'sharded' and 'multihost' take
+                      either (0 = read it every step, in each shard).
       lr / tol /
       max_steps       the GD knobs of Table I.
       warm_start      Table I's nearest-w predecessor warm start inside
@@ -77,7 +87,18 @@ class SolverSpec:
       adaptive        backtracking step-size control (beyond paper).
       bucket          partial-round padding policy: 'pow2' | 'exact' |
                       'full'.
+      mesh            a ``solver_mesh.cells_mesh`` for 'sharded'/
+                      'multihost' (None = resolve one at use:
+                      ``run_mesh``).
       step_impl       'fused' (default) | 'autograd'.
+      lane_placement  'none' | 'sorted': 'sorted' deals lanes to shards
+                      by the previous same-size round's iteration counts
+                      (hardest first, round-robin) and inverts the
+                      permutation on every output, so outcomes equal
+                      'none''s (on the card, Γ of a lane that moves
+                      within its shard up to its last bits: CUDA
+                      reductions round by a row's alignment).  'sharded'
+                      only.
     """
     backend: str = "reference"
     gd_chunk: int = 0
@@ -89,14 +110,11 @@ class SolverSpec:
     per_user_split: bool = False
     adaptive: bool = False
     bucket: str = "pow2"
+    mesh: Optional[tuple] = None           # solver_mesh.cells_mesh
     step_impl: str = "fused"
+    lane_placement: str = "none"
 
     def __post_init__(self):
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend={self.backend!r} is not ported yet: it waits for "
-                "the 'Distributed' item of ROADMAP.md's queue of modules "
-                "to port")
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, "
                              f"got {self.backend!r}")
@@ -110,9 +128,21 @@ class SolverSpec:
         if self.backend == "reference" and self.gd_chunk:
             raise ValueError("backend='reference' reads the done flag every "
                              "step; use backend='chunked' for gd_chunk>0")
+        if self.mesh is not None and self.backend not in _CELL_SHARDED:
+            raise ValueError("mesh= only applies to backend='sharded' "
+                             "or 'multihost'")
         if self.step_impl not in _STEP_IMPLS:
             raise ValueError(f"step_impl must be one of {_STEP_IMPLS}, "
                              f"got {self.step_impl!r}")
+        if self.lane_placement not in _PLACEMENTS:
+            raise ValueError(f"lane_placement must be one of {_PLACEMENTS},"
+                             f" got {self.lane_placement!r}")
+        if self.lane_placement == "sorted" and self.backend != "sharded":
+            # multihost rejects it too: a global permutation would need
+            # every process to see every lane's iteration history
+            raise ValueError("lane_placement='sorted' permutes lanes "
+                             "across mesh shards — it only applies to "
+                             "backend='sharded'")
         if not self.lr > 0:
             raise ValueError(f"lr must be > 0, got {self.lr}")
         if self.tol < 0:
@@ -128,6 +158,22 @@ class SolverSpec:
     def check_every(self) -> int:
         """Steps between reads of the device-side done flag."""
         return self.gd_chunk or 1
+
+    def run_mesh(self):
+        """The mesh a 'sharded'/'multihost' solve runs on (None for the
+        single-device backends).  An unset mesh resolves to a ``cells``
+        mesh over every visible CUDA device ('sharded') or this
+        process's part of the global mesh ('multihost').  Both resolvers
+        memoise, so repeated resolution returns the identical object."""
+        if self.backend not in _CELL_SHARDED:
+            return None
+        if self.mesh is not None:
+            return self.mesh
+        if self.backend == "multihost":
+            from repro_torch.distributed import multihost
+            return multihost.global_cells_mesh()
+        from repro_torch.distributed import solver_mesh
+        return solver_mesh.cells_mesh()
 
 
 class GDResult(NamedTuple):
@@ -252,6 +298,21 @@ def _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
         cur_lr = torch.where(active, new_lr, cur_lr)
         k = k + active.to(k.dtype)
     return GDResult(alloc, loss(alloc), k)
+
+
+def _gd_solve(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
+              adaptive=False, step_impl="fused", check_every=1) -> GDResult:
+    """Single-cell GD at one split vector: ``_gd_core`` on a batch of
+    one.  ``scn``/``s_vec`` (U,)/``q`` (U,)/``x0`` carry no cell axis, nor
+    does the result.  The baselines' entry point."""
+    one = lambda x: x[None]
+    with torch.no_grad():
+        res = _gd_core(tree_map(one, scn), one(s_vec), one(q),
+                       tree_map(one, x0), lr, tol, max_steps, w, prof,
+                       adaptive=adaptive, step_impl=step_impl,
+                       check_every=check_every)
+    return GDResult(tree_map(lambda x: x[0], res.alloc), res.gamma[0],
+                    res.iters[0])
 
 
 def warm_start_predecessors(uplink_bits, warm_start: bool = True
@@ -412,6 +473,40 @@ def _finalize(prep, q, w, swept, spec: SolverSpec) -> List[LiGDOutcome]:
     ]
 
 
+# lane_placement='sorted' history: padded batch size -> (B,) per-lane total
+# GD iterations of the latest sharded solve at that size.  Advisory only:
+# the permutation it induces is inverted on every output, so it changes
+# which shard works hardest, never what a solve returns.
+_LANE_ITERS: dict = {}
+
+
+def reset_lane_history():
+    """Drop the lane_placement='sorted' history (on cell churn, where lane
+    indices change meaning, or between unrelated solves)."""
+    _LANE_ITERS.clear()
+
+
+def _lane_permutation(n_lanes: int, n_shards: int):
+    """Slot->lane permutation for ``lane_placement='sorted'``, or None when
+    there is nothing to sort (no history at this size, or one shard).
+
+    Lanes ranked by the previous same-size round's total iterations are
+    dealt round-robin over the mesh's contiguous shard blocks — hardest
+    lane to shard 0, the next to shard 1, … .  ``permuted[k] =
+    original[perm[k]]``; invert with ``np.argsort(perm)``."""
+    hist = _LANE_ITERS.get(n_lanes)
+    if hist is None or n_shards <= 1 or n_lanes <= 1:
+        return None
+    order = np.argsort(-np.asarray(hist), kind="stable")
+    block = -(-n_lanes // n_shards)              # shard block length (ceil)
+    slots = [s * block + t
+             for t in range(block) for s in range(n_shards)
+             if s * block + t < n_lanes]         # round-robin slot order
+    perm = np.empty(n_lanes, dtype=np.int64)
+    perm[np.asarray(slots)] = order
+    return perm
+
+
 class BatchPrep(NamedTuple):
     """Round-invariant inputs of ``solve_batch`` (stacked scenarios,
     stacked/per-cell profiles, warm-start predecessor matrix)."""
@@ -471,6 +566,12 @@ def solve_batch(scns, prof, q, w: Weights = Weights(), *,
         ``warm_start_from(previous_outcomes)``) or a list of per-cell
         Allocations; hard one-hot β rows are softened (``soften_beta``).
 
+    ``spec.backend='sharded'`` sweeps contiguous lane shards over
+    ``spec.run_mesh()``, padding the lanes (repeat-last) to a multiple of
+    the shard count and dropping the padding; ``'multihost'`` does so for
+    THIS process's lanes: every process passes its own lanes, the same
+    local count and statics, and gets back outcomes for its own lanes.
+
     Returns one ``LiGDOutcome`` per cell."""
     spec = SolverSpec() if spec is None else spec
     if prep is None:
@@ -493,13 +594,55 @@ def solve_batch(scns, prof, q, w: Weights = Weights(), *,
             init_alloc))
     else:
         x_init = uniform_alloc(scn_b)
+    run_mesh = spec.run_mesh()
+    sweep_kw = dict(adaptive=spec.adaptive, step_impl=spec.step_impl,
+                    check_every=spec.check_every,
+                    prof_batched=prep.prof_batched)
     with torch.no_grad():
-        swept = _sweep_core(scn_b, q, x_init, prep.pred_b, spec.lr,
-                            spec.tol, spec.max_steps, w, prep.prof_b,
-                            adaptive=spec.adaptive,
-                            step_impl=spec.step_impl,
-                            check_every=spec.check_every)
+        if spec.backend == "multihost":
+            from repro_torch.distributed import multihost
+            # this process's lanes in, this process's lanes out; no
+            # _LANE_ITERS record, since 'sorted' is rejected here
+            swept = multihost.multihost_sweep(
+                run_mesh, scn_b, q, x_init, prep.pred_b, spec.lr, spec.tol,
+                spec.max_steps, w, prep.prof_b, **sweep_kw)
+        elif run_mesh is not None:
+            swept = _placed_sweep(run_mesh, scn_b, q, x_init, prep, spec, w,
+                                  sweep_kw)
+            # this round's per-lane effort, for the next same-size round
+            _LANE_ITERS[n_cells] = swept.iters.sum(dim=1).cpu().numpy()
+        else:
+            swept = _sweep_core(scn_b, q, x_init, prep.pred_b, spec.lr,
+                                spec.tol, spec.max_steps, w, prep.prof_b,
+                                adaptive=spec.adaptive,
+                                step_impl=spec.step_impl,
+                                check_every=spec.check_every)
         return _finalize(prep, q, w, swept, spec)
+
+
+def _placed_sweep(mesh, scn_b, q, x_init, prep, spec, w, sweep_kw):
+    """The sharded sweep, with the lanes permuted first and the outputs
+    permuted back under ``lane_placement='sorted'``.  A lane's GD is
+    frozen by select, so its result does not depend on the lanes beside
+    it: the inverse permutation restores the 'none' placement's outputs
+    (SolverSpec's docs name the last-bit exception on the card)."""
+    from repro_torch.distributed import solver_mesh
+    perm = None
+    if spec.lane_placement == "sorted":
+        perm = _lane_permutation(q.shape[0], len(mesh))
+    prof_b, pred_b = prep.prof_b, prep.pred_b
+    if perm is not None:
+        take = lambda x: network.take_cells(x, perm)
+        scn_b, q, x_init = take(scn_b), take(q), take(x_init)
+        pred_b = pred_b[perm]
+        if prep.prof_batched:
+            prof_b = take(prof_b)
+    swept = solver_mesh.sharded_sweep(mesh, scn_b, q, x_init, pred_b,
+                                      spec.lr, spec.tol, spec.max_steps, w,
+                                      prof_b, **sweep_kw)
+    if perm is not None:
+        swept = network.take_cells(swept, np.argsort(perm))
+    return swept
 
 
 def solve(scn, prof, q, w: Weights = Weights(), *, spec: SolverSpec = None,
@@ -509,6 +652,11 @@ def solve(scn, prof, q, w: Weights = Weights(), *, spec: SolverSpec = None,
 
     ``init_alloc`` (online ERA): seed layer 1's GD from a previous time
     step's solution instead of the uninformed start."""
+    spec = SolverSpec() if spec is None else spec
+    if spec.backend in _CELL_SHARDED:
+        raise ValueError(f"backend={spec.backend!r} shards a CELL axis — "
+                         "use solve_batch (single-cell solve has no cell "
+                         "axis)")
     q = torch.as_tensor(q, dtype=torch.float32, device=scn.device)
     init = None if init_alloc is None else stack_allocs([init_alloc])
     return solve_batch([scn], prof, q[None], w, spec=spec,

@@ -57,12 +57,17 @@ def _key(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def lib_path() -> Path:
+    """Where the library of the current sources lives, built or not."""
+    return BUILD_ROOT / _key(_sources() + _headers()) / LIB_NAME
+
+
 def build() -> Path:
     """Compile the sources (if this hash is not built yet) and return the
     library's path."""
     sources = _sources()
-    out_dir = BUILD_ROOT / _key(sources + _headers())
-    lib = out_dir / LIB_NAME
+    lib = lib_path()
+    out_dir = lib.parent
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)

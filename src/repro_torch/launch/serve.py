@@ -31,11 +31,14 @@ cells' schedule carry-over is asserted):
       --tiny --users 12 --cells 3 --async-admission --rounds 6 --churn
 
 Solver structure flags map onto ONE ``SolverSpec``: ``--backend
-reference|chunked`` picks the sweep engine, ``--gd-chunk`` its chunk
-length, ``--full-batch-admission`` the ``bucket='full'`` policy.
-``--backend sharded|multihost`` and its legacy alias ``--sharded-solver``
-raise ``NotImplementedError`` (``SolverSpec`` names the ROADMAP item they
-wait for) before anything is built.
+reference|chunked|sharded|multihost`` picks the sweep engine,
+``--gd-chunk`` its chunk length, ``--full-batch-admission`` the
+``bucket='full'`` policy.  The legacy ``--sharded-solver`` spelling is an
+alias for ``--backend sharded``.  The sharded backends shard the cells
+over every visible card, or over one shard on ``--device`` where that is
+given; ``multihost`` first joins the process group the ``REPRO_MH_*``
+variables describe (``distributed.multihost``; one process: identical
+to ``sharded``).
 
 Randomness: the model's weights come from ``transformer.init`` with a
 generator seeded by ``--seed``; scenarios, tokens and drift from host
@@ -110,13 +113,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     choices=["reference", "chunked", "sharded", "multihost"],
                     default=None,
                     help="SolverSpec backend (default: reference, or "
-                         "chunked when --gd-chunk is set); sharded and "
-                         "multihost are not ported yet and raise")
+                         "chunked when --gd-chunk is set).  multihost "
+                         "joins the torch.distributed group of the "
+                         "REPRO_MH_* env vars (single-process: identical "
+                         "to sharded)")
     ap.add_argument("--gd-chunk", type=int, default=0,
                     help="chunked lockstep-free GD segment length "
                          "(0 = the reference backend)")
     ap.add_argument("--sharded-solver", action="store_true",
-                    help="legacy alias for --backend sharded (raises)")
+                    help="legacy alias for --backend sharded")
     ap.add_argument("--full-batch-admission", action="store_true",
                     help="SolverSpec bucket='full': every admission round "
                          "re-solves a full-B-shaped batch")
@@ -142,8 +147,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "host")
     args = ap.parse_args(argv)
 
-    # the spec first: an unported backend raises before anything is built
     spec = build_spec(args)
+    if spec.backend == "multihost":
+        from repro_torch.distributed import multihost
+        info = multihost.initialize_from_env()
+        print(f"multihost solver: process {info.process_id}/"
+              f"{info.n_processes}, {info.n_local_devices} local devices")
 
     from repro_torch.configs import get_config, get_tiny_config
     from repro_torch.core import network, profiles
@@ -155,6 +164,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                                MultiCellScheduler)
 
     dev = resolve_device(args.device)
+    if spec.backend in ("sharded", "multihost"):
+        from repro_torch.distributed import solver_mesh
+        mesh = solver_mesh.cells_mesh(
+            device=None if args.device is None else dev)
+        spec = spec.replace(mesh=mesh)
+        print(f"{spec.backend} solver: {len(mesh)}-shard cells mesh on "
+              f"{','.join(map(str, mesh))}")
     cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
     params = T.init(torch.Generator().manual_seed(args.seed), cfg, dev)
 
@@ -350,6 +366,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
 
     scn = scenario(1)
+    if spec.backend in ("sharded", "multihost"):
+        # one cell has no cell axis to shard: drop to the equivalent
+        # single-device backend
+        spec = spec.replace(mesh=None,
+                            backend="chunked" if spec.gd_chunk
+                            else "reference")
     sched = EraScheduler(scn, prof, spec=spec)
     engine = SplitServeEngine(params, cfg, scn, prof, sched)
     toks = make_tokens(gen(2), args.users)

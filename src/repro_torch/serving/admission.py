@@ -518,7 +518,12 @@ class AdmissionController:
                 return None
             touched = sorted(decision.solve)
 
-        partial = self.partial_batch and len(touched) < self.n_cells
+        # multi-process multihost schedulers route EVERY incremental round
+        # through the subset path (host-local solves): this process's
+        # arrival and drift queue cannot put all processes in lockstep
+        partial = self.partial_batch and (
+            len(touched) < self.n_cells
+            or self.scheduler.host_local_rounds)
 
         # outside the lock: scheduler state belongs to this (single-
         # consumer) round, and the scatter/restack dispatches must not

@@ -38,6 +38,13 @@ controller's background solver thread; ``threaded=False`` is the
 deterministic sync mode (drive rounds with ``step()``).  Churn takes the
 controller's round lock BEFORE the facade lock, so waiting out an
 in-flight background solve never stalls producers.
+
+Multi-process (``SolverSpec(backend='multihost')``, >1 process): each
+process runs its OWN cluster over its contiguous slice of the cell fleet
+(``multihost.lane_slice``).  Incremental rounds solve host-locally
+(``MultiCellScheduler.host_local_rounds``), and live churn meets at a
+named fence under the round lock (``_churn_fence``), so every process
+changes its cell set at the same point between rounds.
 """
 from __future__ import annotations
 
@@ -155,6 +162,18 @@ class SplitInferenceCluster:
             raise KeyError(f"unknown or removed cell id {cell_id}")
         return lane
 
+    def _churn_fence(self, tag: str) -> None:
+        """Multi-process ``multihost`` churn coordination: live
+        ``add_cell``/``remove_cell``/``move_user`` meet at a named fence
+        INSIDE the round-lock hold (``controller.paused()``).  The tag
+        names the op and its operands, so divergent churn across
+        processes fails in the fence instead of desynchronising later
+        rounds.  No-op for one process and for every other backend."""
+        if self.spec.backend != "multihost":
+            return
+        from repro_torch.distributed import multihost
+        multihost.churn_fence(tag)
+
     def _require_started(self) -> None:
         if not self.started:
             raise RuntimeError("cluster not started — call start() first")
@@ -203,6 +222,7 @@ class SplitInferenceCluster:
         # round lock FIRST, facade lock second: waiting out an in-flight
         # background solve must not hold the facade lock
         with self.controller.paused():
+            self._churn_fence(f"add_cell:{cid}")
             with self._lock:
                 lane = self.controller.add_cell(scn, q_row, prof=prof)
                 if lane != len(self._ids):
@@ -224,6 +244,7 @@ class SplitInferenceCluster:
                 return
             self._lane(cell_id)                  # fail fast on bad ids
         with self.controller.paused():
+            self._churn_fence(f"remove_cell:{cell_id}")
             with self._lock:
                 lane = self._lane(cell_id)
                 old_to_new = self.controller.remove_cell(lane)
@@ -245,6 +266,9 @@ class SplitInferenceCluster:
             self._lane(src)
             self._lane(dst)
         with self.controller.paused():
+            self._churn_fence(
+                f"move_user:{src}->{dst}:{user}->"
+                f"{user if dst_user is None else dst_user}")
             with self._lock:
                 return self.controller.move_user(
                     self._lane(src), self._lane(dst), user,

@@ -140,8 +140,23 @@ class MultiCellScheduler:
     def __init__(self, scns: Sequence, prof,
                  weights: Weights = Weights(),
                  spec: ligd.SolverSpec = None):
-        self.spec = spec if spec is not None else \
+        spec = spec if spec is not None else \
             ligd.SolverSpec(per_user_split=True)
+        if spec.backend in ("sharded", "multihost") and spec.mesh is None:
+            # resolve the all-devices default ONCE: every schedule() then
+            # runs on the same mesh object
+            spec = spec.replace(mesh=spec.run_mesh())
+        self.spec = spec
+        # multihost across >1 process: partial rounds and churn solves are
+        # per-process events (arrivals and drift land on one process's
+        # queue), so they run on a sharded spec over the same local mesh
+        # with the same GD statics — per-lane results equal the multihost
+        # backend's, and no round waits for another process.
+        self._host_spec = None
+        if spec.backend == "multihost":
+            from repro_torch.distributed import multihost
+            if multihost.process_count() > 1:
+                self._host_spec = spec.replace(backend="sharded")
         self.scns = list(scns)
         self.prep = ligd.prepare_batch(self.scns, prof, self.spec.warm_start)
         self.prof = prof
@@ -151,6 +166,13 @@ class MultiCellScheduler:
     @property
     def n_cells(self) -> int:
         return len(self.scns)
+
+    @property
+    def host_local_rounds(self) -> bool:
+        """True under a multi-process ``multihost`` spec: incremental
+        rounds stay on this process's lanes, and the admission loop routes
+        every non-bootstrap round through the subset path."""
+        return self._host_spec is not None
 
     @property
     def device(self) -> torch.device:
@@ -371,9 +393,10 @@ class MultiCellScheduler:
         q_sub = q[torch.as_tensor(lanes, device=q.device)]
         if init_alloc is None and warm:
             init_alloc = self._warm_init(lanes, overrides=warm_overrides)
+        # host-local under a multi-process multihost spec
         outs = ligd.solve_batch(None, None, q_sub, self.weights,
-                                spec=self.spec, prep=prep,
-                                init_alloc=init_alloc)
+                                spec=self._host_spec or self.spec,
+                                prep=prep, init_alloc=init_alloc)
         if not self.last_outcomes:
             self.last_outcomes = [None] * self.n_cells
         for j, c in enumerate(cells):              # real lanes only

@@ -4,10 +4,24 @@ on the CPU, and compare the two sides."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from repro_torch import interop
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One torch intra-op thread while a module's tests run (import it into
+    the module to apply it): the suite's workers share the cores, and a
+    small solve's steps are dispatch overhead, not arithmetic, so more
+    threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def scenario(jscn):
@@ -50,3 +64,38 @@ def assert_leaves_close(got, want, atol):
         scale = np.max(np.abs(w)) + 1e-30
         np.testing.assert_allclose(g / scale, w / scale, atol=atol,
                                    err_msg=f"leaf {i}")
+
+
+# the spread bar: the solver's 1e-5 wherever the JAX package's own two
+# step kinds (xla and fused) agree, else twice their spread, capped
+SPREAD_RTOL = 1e-5
+SPREAD_CAP = 1e-3
+
+
+def spread_bar(want, other, scale, whole, what):
+    """Allowed |port - JAX| per element: ``SPREAD_RTOL`` of ``scale``, or
+    twice the JAX package's own xla-vs-fused spread where that is larger — the
+    spread of that element, or with ``whole`` the largest over the
+    quantity (an allocation leaf is one trajectory's, all its users
+    move together) — but never more than ``SPREAD_CAP`` of ``scale``."""
+    want = np.asarray(want, np.float64)
+    spread = np.abs(want - np.asarray(other, np.float64))
+    if whole:
+        spread = spread.max()
+    scale = np.asarray(scale, np.float64)
+    if np.any(2.0 * spread > SPREAD_RTOL * scale):
+        print(f"{what}: bar widened by JAX's xla-vs-fused spread, "
+              f"{np.max(spread / scale):.3e} of scale")
+    return np.minimum(np.maximum(SPREAD_RTOL * scale, 2.0 * spread),
+                      SPREAD_CAP * scale)
+
+
+def assert_within_spread(got, want, other, scale, what, whole=False):
+    """``got`` (port) within ``spread_bar`` of ``want`` (JAX, same step
+    kind), ``other`` being JAX's value with its other step kind."""
+    got = np.asarray(to_np(got), np.float64)
+    err = np.abs(got - np.asarray(want, np.float64))
+    bar = np.broadcast_to(spread_bar(want, other, scale, whole, what),
+                          err.shape)
+    assert np.all(err <= bar), (f"{what}: max err {err.max():.3e}, "
+                                f"bar there {bar.flat[err.argmax()]:.3e}")

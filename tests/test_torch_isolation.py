@@ -38,12 +38,14 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    # the solver, the models (MoE included), serving with its governor,
-    # telemetry, the load generator and the launcher
-    assert n_modules >= 67
+    # the solver with its baselines and sharded backends, the models (MoE
+    # included), serving with its governor, telemetry, the load generator
+    # and the launcher
+    assert n_modules >= 71
     for name in ("models.moe", "telemetry.bus", "telemetry.sinks",
                  "serving.governor", "loadgen.traces", "loadgen.driver",
-                 "launch.serve"):
+                 "launch.serve", "core.baselines", "distributed.solver_mesh",
+                 "distributed.multihost"):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 

@@ -91,6 +91,23 @@ def test_without_device_the_launcher_needs_a_card():
 @pytest.mark.parametrize("flags", [["--backend", "sharded"],
                                    ["--backend", "multihost"],
                                    ["--sharded-solver"]])
-def test_unported_backends_raise_naming_the_roadmap(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "gemma-2b", *SMALL, *flags, "--device", "cpu"])
+def test_unported_backends_raise_naming_the_roadmap(flags, capsys):
+    """The sharded backends and the legacy alias are ported: they no
+    longer raise.  With ``--device cpu`` the cells mesh is one shard on
+    the host, and the one-cell mode drops to the single-device backend."""
+    assert serve.main(["--arch", "gemma-2b", *SMALL, *flags,
+                       "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    backend = "multihost" if "multihost" in flags else "sharded"
+    if backend == "multihost":
+        assert lines.pop(0).startswith("multihost solver: process 0/1, ")
+    assert lines[0] == f"{backend} solver: 1-shard cells mesh on cpu"
+    assert lines[1].startswith("served 6 users | mean latency")
+
+
+def test_sharded_multi_cell_mode():
+    out = _launch("--arch", "mixtral-8x22b", "--cells", "3", "--backend",
+                  "sharded", *SMALL)
+    assert out.splitlines()[0] == "sharded solver: 1-shard cells mesh on cpu"
+    for b in range(3):
+        assert f"[cell {b}] served 6 users | mean latency" in out

@@ -12,7 +12,8 @@ on those, JAX's own two step implementations (``xla`` and ``fused``)
 already disagree, by up to 7e-4 of scale on one user's ``p`` in these
 cases.  There the reference fixes the answer no closer than that, so the
 bar becomes twice JAX's own xla-vs-fused spread on that quantity, capped
-at ``CAP`` of its scale (``_bar``); everywhere else it stays 1e-5.  Each
+at ``SPREAD_CAP`` of its scale (``port_bridge.spread_bar``); everywhere
+else it stays 1e-5.  Each
 widened bar is printed (``pytest -rP``).  The one-hot β leaves of a hard
 allocation are held exactly."""
 import jax
@@ -31,34 +32,7 @@ from repro_torch.core import era, ligd, network
 IMPLS = {"autograd": "xla", "fused": "fused"}
 BACKENDS = ("reference", "chunked")
 PUS = (False, True)
-RTOL = 1e-5          # the bar wherever JAX's two step kinds agree
-CAP = 1e-3           # the widest bar their spread may open, of scale
 ONE_HOT = ("beta_up", "beta_dn")
-
-
-def _bar(want, other, scale, whole, what):
-    """Allowed |port - JAX| per element: ``RTOL`` of ``scale``, or twice
-    the JAX package's own xla-vs-fused spread where that is larger — the
-    spread of that element, or with ``whole`` the largest over the
-    quantity (an allocation leaf is one trajectory's, all its users
-    move together) — but never more than ``CAP`` of ``scale``."""
-    want = np.asarray(want, np.float64)
-    spread = np.abs(want - np.asarray(other, np.float64))
-    if whole:
-        spread = spread.max()
-    scale = np.asarray(scale, np.float64)
-    if np.any(2.0 * spread > RTOL * scale):
-        print(f"{what}: bar widened by JAX's xla-vs-fused spread, "
-              f"{np.max(spread / scale):.3e} of scale")
-    return np.minimum(np.maximum(RTOL * scale, 2.0 * spread), CAP * scale)
-
-
-def _assert_within(got, want, other, scale, what, whole=False):
-    got = np.asarray(pb.to_np(got), np.float64)
-    err = np.abs(got - np.asarray(want, np.float64))
-    bar = np.broadcast_to(_bar(want, other, scale, whole, what), err.shape)
-    assert np.all(err <= bar), (f"{what}: max err {err.max():.3e}, "
-                                f"bar there {bar.flat[err.argmax()]:.3e}")
 
 
 def _assert_outcome(got, want, other):
@@ -67,19 +41,20 @@ def _assert_outcome(got, want, other):
     np.testing.assert_array_equal(np.asarray(got.s), np.asarray(want.s))
     np.testing.assert_array_equal(got.iters_by_layer, want.iters_by_layer)
     assert got.total_iters == want.total_iters
-    _assert_within(got.gamma_by_layer, want.gamma_by_layer,
-                   other.gamma_by_layer, np.abs(want.gamma_by_layer),
-                   "gamma_by_layer")
-    _assert_within(got.terms.gamma, want.terms.gamma, other.terms.gamma,
-                   abs(float(want.terms.gamma)), "gamma")
+    pb.assert_within_spread(got.gamma_by_layer, want.gamma_by_layer,
+                            other.gamma_by_layer,
+                            np.abs(want.gamma_by_layer), "gamma_by_layer")
+    pb.assert_within_spread(got.terms.gamma, want.terms.gamma,
+                            other.terms.gamma, abs(float(want.terms.gamma)),
+                            "gamma")
     for name, g, w, o in zip(era.Allocation._fields, got.alloc, want.alloc,
                              other.alloc):
         if name in ONE_HOT:
             np.testing.assert_array_equal(pb.to_np(g), np.asarray(w),
                                           err_msg=name)
         else:
-            _assert_within(g, w, o, np.max(np.abs(np.asarray(w))), name,
-                           whole=True)
+            pb.assert_within_spread(g, w, o, np.max(np.abs(np.asarray(w))),
+                                    name, whole=True)
 
 
 def _other(impl):
@@ -209,8 +184,19 @@ def test_solver_spec_validation():
     assert ligd.SolverSpec().step_impl == "fused"
     assert ligd.SolverSpec(backend="chunked").gd_chunk == ligd.DEFAULT_GD_CHUNK
     for backend in ("sharded", "multihost"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ligd.SolverSpec(backend=backend)
+        spec = ligd.SolverSpec(backend=backend)
+        assert spec.gd_chunk == 0 and spec.mesh is None
+        assert ligd.SolverSpec(backend=backend, gd_chunk=8).gd_chunk == 8
+    assert ligd.SolverSpec().run_mesh() is None
+    with pytest.raises(ValueError, match="mesh="):
+        ligd.SolverSpec(backend="chunked", mesh=("cpu",))
+    with pytest.raises(ValueError, match="lane_placement"):
+        ligd.SolverSpec(backend="multihost", lane_placement="sorted")
+    with pytest.raises(ValueError, match="lane_placement"):
+        ligd.SolverSpec(lane_placement="random")
+    with pytest.raises(ValueError, match="CELL axis"):
+        ligd.solve(None, None, None,
+                   spec=ligd.SolverSpec(backend="sharded"))
     with pytest.raises(ValueError):
         ligd.SolverSpec(step_impl="xla")
     with pytest.raises(ValueError):
