@@ -126,6 +126,36 @@ each with its timings:
                 remove_cell, one round) across them at a small config,
                 and a divergent fence tag raising in both.  The children
                 load the library phase 2 built.
+ 18. training, tiny  the training path (``launch.steps``, ``training``,
+                ``data.pipeline``) at the tiny float32 configs of
+                internlm2, gemma, recurrentgemma, mamba2, mixtral, musicgen
+                and qwen2-vl (64 tokens, batch 2, TF32 off as pinned): the
+                gradients on the card against the CPU's (each leaf within
+                1e-5 of its max |g|, the loss within rtol 1e-5), one train
+                step on each (loss, total loss and gradient norm within
+                rtol 1e-5, lr within 1e-6), and the card's new weights and
+                moments against the CPU optimiser on the card's gradients
+                (each leaf within 1e-6 of its max |value|); each model
+                kernel called with an input that
+                requires grad raises; a checkpoint save, restore and
+                resume after 2 of 4 steps equals the uninterrupted run
+                bitwise; the launcher trains the tiny internlm2 on the
+                card (no ``--device``)
+ 19. training, full  internlm2-1.8b at full width and depth (bf16, 24
+                layers, vocab 92544), train_4k's 4096 tokens at global
+                batch 4, ``impl="chunked"``, remat on: a step at
+                microbatches 2 against one at 1 from the same state (loss
+                within rtol 2e-3, the largest weight difference printed),
+                then ``training.loop.train`` for 12 steps: the median
+                step and data ms of the last 8, tokens/s, model TFLOP/s
+                (6·N·tokens a step; attention and the recompute left out)
+                and its share of the bf16 peak, peak GiB, the first and
+                last loss (every loss finite, the last below the first),
+                each on a line of its own; one more step under the
+                profiler: device-busy share, the GEMMs' share and the top
+                kernels by device time.  Neither training phase may
+                launch a kernel (the kernels refuse gradients): each
+                kernel's count on both paths is 0
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -148,6 +178,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -216,6 +247,26 @@ SHARD_TOL = 1e-3
 FIG12_MULTIPLES = (0.6, 0.9, 1.2)
 # phase 17: seconds a child process may take
 CHILD_TIMEOUT_S = 300
+# phase 18: the seven families trained at their tiny float32 configs, one
+# step on the card against the same step on the CPU; 64 tokens are two
+# chunks of the tiny mamba2's 32 and past the tiny window of 64 with the
+# vision prefix
+TRAIN_ARCHS = ("internlm2-1.8b", "gemma-2b", "recurrentgemma-2b",
+               "mamba2-780m", "mixtral-8x22b", "musicgen-medium",
+               "qwen2-vl-72b")
+TINY_SEQ, TINY_BATCH = 64, 2
+# the tolerances of the CPU suite (tests/test_torch_training.py): the
+# loss, the gradient norm and the learning rate relative; each gradient
+# leaf against its max |g|; the optimiser's outputs on equal inputs,
+# each leaf against its max |value| (elementwise relative error blows
+# up where a new weight cancels to ~0)
+LOSS_RTOL, GRAD_TOL, OPT_RTOL = 1e-5, 1e-5, 1e-6
+# phase 19: internlm2-1.8b at full width and depth, train_4k's sequence
+# at global batch 4 (256 in JAX's shape, cut for one card), remat on
+FULL_ARCH, FULL_SEQ, FULL_BATCH = "internlm2-1.8b", 4096, 4
+FULL_STEPS, FULL_TIMED = 12, 8      # timed: the median of the last 8
+# microbatches=2 against 1 from one state: the loss, relative
+MICROBATCH_RTOL = 2e-3
 
 
 def log(phase, **fields):
@@ -734,6 +785,267 @@ def phase_multihost(dev, by_path, sharded):
         bitwise_two_shard_sharded=True, group_timeout_s=multihost.PG_TIMEOUT_S,
         launches=json.dumps({n: by_path[n]["multihost"] for n in
                              ("era_step", "noma_rate")}).replace(" ", ""),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def _state_to(state, dev):
+    """A copy of a train state on ``dev``."""
+    from repro_torch.training import optim
+    opt = state["opt"]
+    cp = lambda d: {k: x.to(dev, copy=True) for k, x in d.items()}
+    return {"params": copy.deepcopy(state["params"]).to(dev),
+            "opt": optim.OptState(opt.step.to(dev, copy=True), cp(opt.m),
+                                  cp(opt.v))}
+
+
+def _train_leaves(state):
+    from repro_torch.training import checkpoint
+    return [x for _, x in checkpoint.leaves(state)]
+
+
+def phase_training_tiny(dev, by_path, kernel_fns):
+    """Phase 18: the training path at the tiny configs, on the card
+    against the CPU (module docs)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.training import optim
+    from repro_torch.training.loop import train
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    worst = {}
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_tiny_config(arch).replace(dtype="float32")
+        opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        state = steps.init_train_state(
+            cfg, torch.Generator().manual_seed(SEED), cpu)
+        batch = pipeline.for_config(cfg, TINY_SEQ, TINY_BATCH, seed=SEED,
+                                    device=cpu).batch(0, 0)
+        dbatch = {k: x.to(dev) for k, x in batch.items()}
+        # the gradients: the card's against the CPU's
+        grad_fn = steps.make_grad_fn(cfg, microbatches=1)
+        t_c, l_c, g_c = grad_fn(state["params"], batch)
+        dstate = _state_to(state, dev)
+        t_d, l_d, g_d = grad_fn(dstate["params"], dbatch)
+        g_d = {k: x.cpu() for k, x in g_d.items()}
+        loss_err = max(abs(float(a) / float(b) - 1.0)
+                       for a, b in ((l_d, l_c), (t_d, t_c)))
+        grad_err = max(scaled_err(g_d[k], g_c[k]) for k in g_c)
+        # one train step on each device from the same state; then the
+        # CPU optimiser on the card's gradients: the card's new state
+        ref = _state_to(state, cpu)
+        _, ref["opt"], _ = optim.apply(
+            opt_cfg, dict(ref["params"].named_parameters()), g_d, ref["opt"])
+        step = steps.make_train_step(cfg, opt_cfg, microbatches=1)
+        state, m_c = step(state, batch)
+        dstate, m_d = step(dstate, dbatch)
+        torch.cuda.synchronize()
+        metric_err = max(abs(float(m_d[k]) / float(m_c[k]) - 1.0)
+                         for k in ("loss", "total_loss", "grad_norm"))
+        lr_err = abs(float(m_d["lr"]) / float(m_c["lr"]) - 1.0)
+        # each leaf against its max |value|, as the gradients: new
+        # weights that cancel to near 0 (|w| ~ lr) make an element's own
+        # relative error a measure of the cancellation
+        opt_err = max(scaled_err(got.detach().cpu(), want.detach())
+                      for got, want in zip(_train_leaves(dstate),
+                                           _train_leaves(ref)))
+        worst[arch] = dict(loss=loss_err, grads=grad_err, step=metric_err,
+                           lr=lr_err, opt=opt_err)
+        if not (loss_err <= LOSS_RTOL and grad_err <= GRAD_TOL
+                and metric_err <= LOSS_RTOL and lr_err <= OPT_RTOL
+                and opt_err <= OPT_RTOL):
+            raise AssertionError(f"{arch}: the card's train step differs "
+                                 f"from the CPU's: {worst[arch]}")
+    # the kernels refuse inputs that require grad, on the card
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    q, k, v = rn(1, 16, 2, 64), rn(1, 16, 1, 64), rn(1, 16, 1, 64)
+    a, b = torch.rand(1, 16, 8, generator=g, device=dev), rn(1, 16, 8)
+    x, dt = rn(1, 32, 2, 32), torch.rand(1, 32, 2, generator=g, device=dev)
+    bc, ad = rn(1, 32, 32), -torch.rand(2, generator=g, device=dev)
+    refused = []
+    for name, call, t in (
+            ("flash_attention", lambda: kernel_fns["flash_attention"](
+                q, k, v), q),
+            ("rglru_scan", lambda: kernel_fns["rglru_scan"](a, b), a),
+            ("ssd", lambda: kernel_fns["ssd"](x, dt, ad, bc, bc, ad,
+                                              chunk=32), x)):
+        t.requires_grad_(True)
+        try:
+            call()
+        except RuntimeError as e:
+            if "impl=" not in str(e):
+                raise
+            refused.append(name)
+        finally:
+            t.requires_grad_(False)
+    if len(refused) != 3:
+        raise AssertionError(f"only {refused} refused inputs that require "
+                             f"grad")
+    # checkpoint resume on the card replays the uninterrupted run bitwise
+    cfg = configs.get_tiny_config(FULL_ARCH).replace(dtype="float32")
+    kw = dict(seq_len=TINY_SEQ, global_batch=4, log_every=1, device=dev,
+              opt_cfg=optim.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                        total_steps=4))
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        whole, hist = train(cfg, steps=4, **kw)
+        train(cfg, steps=2, ckpt_dir=tmp, **kw)
+        resumed, hist_r = train(cfg, steps=4, ckpt_dir=tmp, resume=True,
+                                **kw)
+        rc = train_launcher.main(["--arch", FULL_ARCH, "--tiny", "--steps",
+                                  "3"])
+    bitwise = (all(torch.equal(p_, q_) for p_, q_ in
+                   zip(_train_leaves(whole), _train_leaves(resumed)))
+               and [h["loss"] for h in hist_r]
+               == [h["loss"] for h in hist[2:]])
+    if not bitwise or rc != 0:
+        raise AssertionError(f"resume is not bitwise ({bitwise}) or the "
+                             f"launcher exited {rc}")
+    torch.cuda.synchronize()
+    for name, fn in kernel_fns.items():
+        by_path[name]["train_tiny"] = fn.launches
+    if any(fn.launches for fn in kernel_fns.values()):
+        raise AssertionError("a kernel was launched on the training path")
+    log("train_tiny", archs=len(TRAIN_ARCHS), seq=TINY_SEQ,
+        batch=TINY_BATCH, dtype="float32",
+        worst=json.dumps({a: {k: float(f"{v:.3e}") for k, v in e.items()}
+                          for a, e in worst.items()}).replace(" ", ""),
+        tolerances=f"loss/step {LOSS_RTOL}, grads {GRAD_TOL}, optimiser "
+                   f"{OPT_RTOL}", refused=",".join(refused),
+        resume_bitwise=bitwise, launcher_rc=rc,
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_training_full(dev, by_path, kernel_fns, smi):
+    """Phase 19: internlm2-1.8b at full width and depth (module docs)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.training import optim
+    from repro_torch.training.loop import train
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(FULL_ARCH)
+    torch.cuda.empty_cache()       # the earlier phases' cached blocks
+    # what the earlier phases leave: tensors still held, and threads that
+    # share the host with the (host-bound) sampler
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    n_threads = threading.active_count()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    # microbatches 2 against 1 from one state (the initial one: its
+    # moments are zero, so the weights are all the state there is)
+    # the loop's own optimiser settings for this many steps
+    opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=max(FULL_STEPS // 10,
+                                                          1),
+                                total_steps=FULL_STEPS)
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                   dev)
+    n_params = transformer.param_count(state["params"])
+    batch = pipeline.for_config(cfg, FULL_SEQ, FULL_BATCH, seed=SEED,
+                                device=dev).batch(0, 0)
+    params = list(state["params"].parameters())
+    # the initial weights and the nm=1 step's, on the host: the card
+    # holds the state, an f32 accumulation buffer and the logits
+    w0 = [p.detach().to("cpu", copy=True) for p in params]
+    out = {}
+    for nm in (1, 2):
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.copy_(w)
+            for d in (state["opt"].m, state["opt"].v):
+                for x in d.values():
+                    x.zero_()
+            state["opt"].step.zero_()
+        state, m = steps.make_train_step(cfg, opt_cfg, microbatches=nm)(
+            state, batch)
+        out[nm] = float(m["loss"])
+        if nm == 1:
+            w1 = [p.detach().to("cpu", copy=True) for p in params]
+    mb_rel = abs(out[2] / out[1] - 1.0)
+    mb_param_diff = max(float((p.detach().cpu().float() - w.float()).abs()
+                              .max()) for p, w in zip(params, w1))
+    del state, batch, params, w0, w1, m
+    torch.cuda.empty_cache()
+    if not mb_rel <= MICROBATCH_RTOL:
+        raise AssertionError(f"microbatches=2 loss {out[2]} against "
+                             f"{out[1]} at 1")
+    # the timed run: the training loop, a fresh state from the seed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, hist = train(cfg, steps=FULL_STEPS, seq_len=FULL_SEQ,
+                            global_batch=FULL_BATCH, opt_cfg=opt_cfg,
+                            impl="chunked", log_every=1, seed=SEED,
+                            device=dev)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # where a step's device time goes: one more step, profiled
+    batch = pipeline.for_config(cfg, FULL_SEQ, FULL_BATCH, seed=SEED,
+                                device=dev).batch(0, FULL_STEPS)
+    step = steps.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    # kernel rows only: an operator's row repeats its kernels' time
+    events = [e for e in trace.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    gemm_s = sum(e.self_device_time_total for e in events
+                 if re.search(r"gemm|xmma|cutlass|nvjet", e.key)) / 1e6
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    del state, batch, trace, events
+    torch.cuda.empty_cache()
+    for name, fn in kernel_fns.items():
+        by_path[name]["train_full"] = fn.launches
+    if any(fn.launches for fn in kernel_fns.values()):
+        raise AssertionError("a kernel was launched on the training path")
+    losses = [h["loss"] for h in hist]
+    if not (len(losses) == FULL_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the full-width losses: {losses}")
+    timed = hist[-FULL_TIMED:]
+    step_ms = float(np.median([h["step_ms"] for h in timed]))
+    data_ms = float(np.median([h["data_ms"] for h in timed]))
+    tokens = FULL_SEQ * FULL_BATCH
+    tflops = 6.0 * n_params * tokens / (step_ms / 1e3) / 1e12
+    log("train_full", model=cfg.name, params=n_params, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, seq=FULL_SEQ,
+        batch=FULL_BATCH, impl="chunked", remat=True, steps=FULL_STEPS)
+    log("train_full", step_ms_median_last8=f"{step_ms:.1f}",
+        step_ms_each=json.dumps([round(h["step_ms"], 1) for h in hist]
+                                ).replace(" ", ""))
+    log("train_full", data_ms_per_batch=f"{data_ms:.1f}",
+        data_share_of_step=f"{data_ms / (data_ms + step_ms):.3f}")
+    log("train_full", tokens_per_s=f"{tokens / (step_ms / 1e3):.1f}")
+    log("train_full", model_tflops=f"{tflops:.1f}",
+        share_of_bf16_peak=f"{tflops * 1e12 / BF16_FLOPS_S:.4f}",
+        counted="6*N*tokens, N the port's parameters, attention FLOPs "
+                "and the remat recompute left out")
+    log("train_full", peak_GiB=f"{peak_gib:.2f}",
+        held_before_phase_GiB=f"{held_gib:.2f}")
+    log("train_full", loss_first=f"{losses[0]:.4f}",
+        loss_last=f"{losses[-1]:.4f}")
+    log("train_full_profile", step_s=f"{prof_s:.3f}",
+        device_busy_s=f"{busy_s:.3f}",
+        device_busy_share=f"{busy_s / prof_s:.3f}",
+        gemm_s=f"{gemm_s:.3f}", gemm_share_of_busy=f"{gemm_s / busy_s:.3f}",
+        top_kernels_ms=json.dumps(
+            {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+             for e in top}))
+    log("train_full", microbatch2_loss_rel=f"{mb_rel:.3e}",
+        microbatch2_max_param_diff=f"{mb_param_diff:.3e}",
+        tol=MICROBATCH_RTOL)
+    log("train_full", nvidia_smi=repr(smi), host_threads=n_threads,
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
@@ -1296,14 +1608,12 @@ def main():
     fused, _ = transformer.forward(model, mcfg, rows, impl="kernel")
     split_errs = check_split(model, mcfg, rows, split, fused)
     # the same rows through the plain path: naive attention and the plain
-    # sequential scan, with neither kernel launched
-    kernel_scan = rglru_mod.linear_scan
-    rglru_mod.linear_scan = scan_ref.linear_scan_sequential
+    # sequential scan (in place of the associative scan a non-kernel impl
+    # takes), with neither kernel launched
     n_fa, n_scan = flash_attention_bshd.launches, rglru_scan.launches
-    try:
+    with mock.patch.object(rglru_mod, "linear_scan_associative",
+                           scan_ref.linear_scan_sequential):
         plain, _ = transformer.forward(model, mcfg, rows, impl="naive")
-    finally:
-        rglru_mod.linear_scan = kernel_scan
     if (flash_attention_bshd.launches, rglru_scan.launches) != (n_fa, n_scan):
         raise AssertionError("the plain forward launched a kernel")
     plain_err = float((plain - fused).abs().max() / plain.abs().max())
@@ -1985,6 +2295,14 @@ def main():
     phase_baselines(dev, by_path)
     sharded = phase_sharded(dev, by_path)
     phase_multihost(dev, by_path, sharded)
+
+    # ---- 18–19. the training path ------------------------------------------
+    # it runs the plain paths, which the kernels' counts show: 0 launches
+    train_fns = {"era_step": era_step_fused, "noma_rate": noma_rate,
+                 "flash_attention": flash_attention_bshd,
+                 "rglru_scan": rglru_scan, "ssd": ssd_scan}
+    phase_training_tiny(dev, by_path, train_fns)
+    phase_training_full(dev, by_path, train_fns, smi)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -2,7 +2,8 @@
 
 The state two implementations must share is the channel ``Scenario`` (its
 seven array fields plus the 15 ``CellEnv`` leaves), the ``SplitProfile``
-tables, an ``Allocation``, the ``Weights``, and the served model's weights.
+tables, an ``Allocation``, the ``Weights``, the served model's weights,
+and a train state (weights plus the AdamW step and moments).
 Each function here takes that state as numpy arrays and plain Python
 values — what ``np.asarray`` gives on the JAX side — and returns the port's
 object on ``device`` (default: the card).  Nothing here imports JAX.
@@ -24,6 +25,7 @@ from repro_torch.core.network import (_SCN_FIELDS, CellEnv, NetworkConfig,
 from repro_torch.core.profiles import SplitProfile
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models.common import Params
+from repro_torch.training.optim import OptState
 
 _INDEX_FIELDS = ("assoc", "up_order", "up_group_end", "dn_order",
                  "dn_group_end")
@@ -132,3 +134,80 @@ def _index(tree: Mapping, u: int) -> dict:
     """Unit ``u`` of a subtree whose leaves are stacked on axis 0."""
     return {k: _index(v, u) if isinstance(v, Mapping) else np.asarray(v)[u]
             for k, v in tree.items()}
+
+
+def _named(cfg, tree: Mapping, dev) -> dict:
+    """{parameter name: tensor} of a params-shaped pytree."""
+    return {k: p.data for k, p in
+            model_from_numpy(cfg, tree, dev).named_parameters()}
+
+
+def train_state_from_numpy(cfg, state_tree: Mapping, device=None) -> dict:
+    """The port's train state ``{"params", "opt"}`` from the JAX package's
+    (``launch.steps.init_train_state``'s layout, numpy leaves):
+    ``params`` as ``model_from_numpy`` takes it, made trainable, and
+    ``opt`` an ``OptState`` (``step``, ``m``, ``v``, in field order) whose
+    moments mirror ``params``."""
+    dev = resolve_device(device)
+    model = model_from_numpy(cfg, state_tree["params"], dev)
+    model.requires_grad_(True)
+    step, m, v = state_tree["opt"]
+    step = torch.as_tensor(np.array(step, np.int32), device=dev)
+    return {"params": model,
+            "opt": OptState(step, _named(cfg, m, dev), _named(cfg, v, dev))}
+
+
+def _numpy(x):
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes  # only the JAX side's numpy has a bfloat16
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
+def params_to_numpy(cfg, named: Mapping) -> dict:
+    """The JAX params pytree, numpy leaves, of {parameter name: tensor}
+    (``named_parameters()``, or moments and gradients keyed the same
+    way): ``units`` (one subtree per pattern position, leaves stacked
+    over the units), ``tail`` and the top-level leaves; the inverse of
+    ``model_from_numpy``."""
+    per_layer = [dict() for _ in range(cfg.n_layers)]
+    tree = {}
+    for name, x in named.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            per_layer[int(i)][rest] = _numpy(x)
+        else:
+            tree[name] = _numpy(x)
+
+    def nest(flat):
+        out = {}
+        for key, x in flat.items():
+            *path, leaf = key.split(".")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = x
+        return out
+
+    n_unit = cfg.n_units * cfg.pattern_len
+    if cfg.n_units > 0:
+        tree["units"] = tuple(
+            nest({k: np.stack([per_layer[u * cfg.pattern_len + pos][k]
+                               for u in range(cfg.n_units)])
+                  for k in per_layer[pos]})
+            for pos in range(cfg.pattern_len))
+    tree["tail"] = tuple(nest(per_layer[i])
+                         for i in range(n_unit, cfg.n_layers))
+    return tree
+
+
+def train_state_to_numpy(cfg, state: Mapping) -> dict:
+    """The inverse of ``train_state_from_numpy``: ``{"params": tree,
+    "opt": (step, m_tree, v_tree)}`` in the JAX package's layout, numpy
+    leaves (``OptState(*opt)`` on the JAX side)."""
+    opt = state["opt"]
+    params = dict(state["params"].named_parameters())
+    return {"params": params_to_numpy(cfg, params),
+            "opt": (_numpy(opt.step), params_to_numpy(cfg, opt.m),
+                    params_to_numpy(cfg, opt.v))}

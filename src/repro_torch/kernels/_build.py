@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "repro_torch"
@@ -155,3 +157,17 @@ def check(status: int, what: str) -> None:
     """Raise when a C entry returned a non-zero ``cudaError_t``."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def refuse_grad(what: str, instead: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``what``.
+
+    The kernels write their outputs through raw pointers, so an output
+    has no ``grad_fn``: a gradient through one would be silently zero.
+    The check holds on every device (the CPU dispatch to the plain
+    version is differentiable, but would hide the fault a CUDA run has).
+    ``instead`` names the path to train through."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward and refuses inputs that require "
+            f"grad; train through {instead}")

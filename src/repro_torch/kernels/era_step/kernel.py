@@ -4,8 +4,9 @@
 ``ref.fused_step_math`` with a leading cell axis B and returns
 ``(gamma (B,), d_beta_up_t (B, M, U), d_beta_dn_t, d_p (B, 1, U), d_pap,
 d_r)``.  CUDA tensors launch the kernel (one launch covers every cell);
-CPU tensors take the plain version.  ``era_step_fused.launches`` counts
-kernel launches.
+CPU tensors take the plain version; inputs that require grad raise (the
+kernel returns ∂Γ itself and has no backward).
+``era_step_fused.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -80,6 +81,8 @@ def _layout(b, m, u):
 
 def era_step_fused(*operands):
     """One fused forward+backward GD step for B cells."""
+    _build.refuse_grad("era_step_fused", "the solver's step_impl='autograd'",
+                       *operands)
     b, m, u, n = _check(operands)
     if operands[0].device.type == "cpu":
         gamma, grads = _ref.fused_step_math(*operands)

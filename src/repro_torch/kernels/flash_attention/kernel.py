@@ -8,7 +8,9 @@ reading kv head ``h // (H // K)``; float32 or bfloat16, D in (64, 128,
 model's tensors need no copy: D must be contiguous and every other stride
 and the data pointers 16-byte aligned.  Returns a contiguous (B, S, H, D)
 in q's dtype.  CUDA tensors launch the kernel (bf16 on the tensor cores,
-float32 on the CUDA cores), CPU tensors take the plain version.
+float32 on the CUDA cores), CPU tensors take the plain version.  Inputs
+that require grad raise (the kernel has no backward;
+``_build.refuse_grad``).
 ``flash_attention_bshd.launches`` counts kernel launches.
 
 ``flash_attention_bhsd(q, k, v, ...)``: the TPU kernel's layout, q
@@ -68,6 +70,8 @@ def _check(q, k, v):
 
 
 def flash_attention_bshd(q, k, v, *, causal=True, window=0, scale=None):
+    _build.refuse_grad("flash_attention", "the model's impl='chunked' or "
+                       "'naive'", q, k, v)
     b, s, h, kh, t, d = _check(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(d)

@@ -3,7 +3,8 @@
 ``noma_rate(contrib, sig, group_end, inter, bw)``: (B, M, U) float32
 inputs in SIC-sorted order, int32 keys, ``bw`` a (B,) float32 tensor;
 returns the (B, M, U) rates.  CUDA tensors launch the kernel, CPU tensors
-take the plain version.  ``noma_rate.launches`` counts kernel launches.
+take the plain version; inputs that require grad raise (the kernel has
+no backward).  ``noma_rate.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ def _check(contrib, sig, group_end, inter, bw):
 
 def noma_rate(contrib, sig, group_end, inter, bw):
     """Per-(channel, sorted-user) SIC uplink rates for B cells."""
+    _build.refuse_grad("noma_rate", "core.noma.uplink_rates", contrib, sig,
+                       inter, bw)
     b, m, u = _check(contrib, sig, group_end, inter, bw)
     if contrib.device.type == "cpu":
         return noma_rate_ref(contrib, sig, group_end, inter, bw)

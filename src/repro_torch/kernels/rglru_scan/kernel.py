@@ -2,8 +2,9 @@
 
 ``rglru_scan(a, b)``: a, b (B, L, D) float32; returns h (B, L, D) with
 h_t = a_t·h_{t-1} + b_t from h_0 = 0.  CUDA tensors launch the kernel,
-CPU tensors take the plain version.  ``rglru_scan.launches`` counts
-kernel launches.
+CPU tensors take the plain version.  Inputs that require grad raise
+(the kernel has no backward; ``_build.refuse_grad``).
+``rglru_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ def _check(a, b):
 
 
 def rglru_scan(a, b):
+    _build.refuse_grad("rglru_scan", "the model's plain scan (rglru.forward "
+                       "with impl='naive' or 'chunked')", a, b)
     bt, l, d = _check(a, b)
     if a.device.type == "cpu":
         return linear_scan_sequential(a, b)

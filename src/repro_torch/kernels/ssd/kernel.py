@@ -10,7 +10,8 @@ x's dtype with N contiguous.  P in (32, 64), N in (32, 64, 128),
 is masked as if padded with dt = 0).  Returns y (Bt, L, H, P) in x's
 dtype and the final state (Bt, H, P, N) float32.  CUDA tensors launch
 the kernel, CPU tensors take the plain version
-(``ref.ssd_chunked``).
+(``ref.ssd_chunked``).  Inputs that require grad raise (the kernel has
+no backward; ``_build.refuse_grad``).
 
 What bounds it on an H100 is the bytes of x and y at mamba2-780m's shape
 (the tensor cores' bf16 rate for the operations).  The bf16 path
@@ -89,6 +90,8 @@ def _check(x, dt, a, b, c, d, chunk):
 
 
 def ssd_scan(x, dt, a, b, c, d, *, chunk):
+    _build.refuse_grad("ssd_scan", "the model's plain chunked scan "
+                       "(impl='chunked' or 'naive')", x, dt, a, b, c, d)
     bt, l, h, p, n = _check(x, dt, a, b, c, d, chunk)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a, b, c, d, chunk=chunk)

@@ -58,16 +58,17 @@ def _apply_ffn(params, cfg, spec, x):
 
 def forward(params, cfg, spec, x, positions, impl="kernel"):
     """(x, positions) -> (x, aux). Full sequence, no cache capture.
-    ``impl`` picks the attention path (``attention.IMPLS``) and the SSD
-    scan (``"kernel"``, else the plain chunked scan: ``ssm``'s
-    docstring); the RG-LRU mixer has one path (``rglru``'s docstring)."""
+    ``impl`` picks the attention path (``attention.IMPLS``), the SSD
+    scan (``"kernel"``, else the plain chunked scan: ``ssm``'s docstring)
+    and the RG-LRU scan (``"kernel"``, else the plain associative scan:
+    ``rglru``'s docstring)."""
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
         y = attention.forward(params.mixer, cfg, h, positions, mixer=mixer,
                               impl=impl)
     elif mixer == "rec":
-        y, _ = rglru.forward(params.mixer, cfg, h)
+        y, _ = rglru.forward(params.mixer, cfg, h, impl=impl)
     elif mixer == "ssd":
         y = ssm.forward(params.mixer, cfg, h, impl=impl)
     else:

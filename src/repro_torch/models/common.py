@@ -17,8 +17,10 @@ def dtype_of(cfg) -> torch.dtype:
 class Params(nn.Module):
     """Named weight tensors and named sub-modules: the counterpart of one
     dict of the JAX package's params pytree, under the same names.  The
-    weights are frozen (``requires_grad=False``): the port serves, it does
-    not train."""
+    weights are made frozen (``requires_grad=False``), so serving records
+    no autograd graph; the train state (``launch.steps.init_train_state``,
+    ``interop.train_state_from_numpy``) turns ``requires_grad_(True)``
+    on."""
 
     def __init__(self, **items):
         super().__init__()

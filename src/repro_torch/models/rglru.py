@@ -10,11 +10,15 @@ RG-LRU:
   log a_t = -c * softplus(Λ) * r_t
   h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
-Full sequences run the recurrence through ``rglru_scan.ops.linear_scan``:
-the hand-written kernel on a CUDA tensor, its plain sequential version on
-a CPU one.  That one path stands where the JAX block chooses between an
-associative scan and the Pallas kernel.  Decode is a single fused step.
-Recurrence math in float32.
+Full sequences pick the recurrence by ``impl``, as the JAX block does:
+``"kernel"`` runs ``rglru_scan.ops.linear_scan`` (the hand-written kernel
+on a CUDA tensor, its plain sequential version on a CPU one), where JAX
+says ``"pallas"``; any other ``impl`` runs the plain associative scan
+(``ref.linear_scan_associative``, the counterpart of JAX's
+``jax.lax.associative_scan``), which autograd differentiates: training
+takes it, since the kernel refuses inputs that require grad.  ``prefill``
+and serving keep the kernel.  Decode is a single fused step.  Recurrence
+math in float32.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ops import linear_scan
+from repro_torch.kernels.rglru_scan.ref import linear_scan_associative
 from repro_torch.models.common import (Params, dense_init, dtype_of, gelu,
                                        sub_generator)
 
@@ -69,7 +74,7 @@ def _gates(params, cfg, xr):
     return a, b
 
 
-def _scan_branch(params, cfg, x, xr1, init_h=None):
+def _scan_branch(params, cfg, x, xr1, init_h=None, impl="kernel"):
     """The conv + RG-LRU branch times the gate branch, before out_proj.
     Returns (y in x's dtype, h (B, L, dr) float32)."""
     xr = _causal_conv(xr1, params.conv_w, params.conv_b).float()
@@ -79,13 +84,16 @@ def _scan_branch(params, cfg, x, xr1, init_h=None):
         # fold the carried state into the first step: h_1 = a_1 h_0 + b_1
         b = b.clone()
         b[:, 0] += a[:, 0] * init_h.float()
-    h = linear_scan(a, b)
+    if impl == "kernel":
+        h = linear_scan(a, b)
+    else:
+        h = linear_scan_associative(a, b)
     return (h * gate).to(x.dtype), h
 
 
-def forward(params, cfg, x, init_h=None):
+def forward(params, cfg, x, init_h=None, impl="kernel"):
     """x (B,L,d) -> (y (B,L,d), h_L (B, d_rnn) float32)."""
-    y, h = _scan_branch(params, cfg, x, x @ params.proj_rec, init_h)
+    y, h = _scan_branch(params, cfg, x, x @ params.proj_rec, init_h, impl)
     return y @ params.out_proj, h[:, -1]
 
 

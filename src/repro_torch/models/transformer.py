@@ -6,7 +6,10 @@ mixture-of-experts FFNs).
 The model is a ``Params`` module: ``embed``, ``layers`` (an
 ``nn.ModuleList`` with one block per layer, where the JAX package stacks
 the repeating pattern into scanned units plus a tail), ``final_norm`` and,
-for untied embeddings, ``lm_head``.
+for untied embeddings, ``lm_head``.  ``forward`` still walks the layers a
+pattern unit at a time (``cfg.pattern_len`` layers, then the tail), as the
+JAX scan does: ``remat=True`` checkpoints each unit, and the MoE aux loss
+sums per unit in JAX's order.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models import blocks
@@ -101,14 +105,39 @@ def _stream(params, cfg, tokens, vision_embeds, positions):
     return x, positions
 
 
-def forward(params, cfg, tokens, vision_embeds=None, positions=None,
-            impl="kernel"):
-    """Full-sequence forward. Returns (logits, moe_aux)."""
-    x, positions = _stream(params, cfg, tokens, vision_embeds, positions)
-    aux_total = 0.0
-    for spec, layer in zip(cfg.layer_specs, params.layers):
+def _run_layers(layers, cfg, specs, x, positions, impl):
+    """Blocks in order. Returns (x, the sum of their MoE aux losses)."""
+    aux = 0.0
+    for spec, layer in zip(specs, layers):
         x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl)
-        aux_total += a
+        aux = aux + a
+    return x, aux
+
+
+def forward(params, cfg, tokens, vision_embeds=None, positions=None,
+            impl="kernel", remat=False):
+    """Full-sequence forward. Returns (logits, moe_aux).
+
+    ``remat=True`` runs each pattern unit under ``torch.utils.checkpoint``
+    (non-reentrant; the model draws no random numbers): the backward pass
+    recomputes a unit's activations from its input, as
+    ``jax.checkpoint(unit_body)`` does.  The tail layers stay outside."""
+    x, positions = _stream(params, cfg, tokens, vision_embeds, positions)
+    n, specs = cfg.pattern_len, cfg.layer_specs
+    aux_total = 0.0
+    for u in range(cfg.n_units):
+        lo, hi = u * n, (u + 1) * n
+        unit = (params.layers[lo:hi], cfg, specs[lo:hi], x, positions, impl)
+        if remat:
+            x, a = checkpoint(_run_layers, *unit, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _run_layers(*unit)
+        aux_total = aux_total + a
+    tail = cfg.n_units * n
+    for spec, layer in zip(specs[tail:], params.layers[tail:]):
+        x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl)
+        aux_total = aux_total + a
     return lm_logits(params, cfg, x), aux_total
 
 

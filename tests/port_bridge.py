@@ -99,3 +99,13 @@ def assert_within_spread(got, want, other, scale, what, whole=False):
                           err.shape)
     assert np.all(err <= bar), (f"{what}: max err {err.max():.3e}, "
                                 f"bar there {bar.flat[err.argmax()]:.3e}")
+
+
+def train_state(cfg, jstate):
+    """A JAX train state (``launch.steps.init_train_state``'s layout) as
+    the port's, on the CPU."""
+    import jax
+    tree = jax.tree.map(np.asarray, jstate)
+    return interop.train_state_from_numpy(
+        cfg, {"params": tree["params"], "opt": tuple(tree["opt"])},
+        device=CPU)

@@ -40,12 +40,15 @@ def test_importing_every_module_loads_no_jax():
     n_modules = int(out.stdout.split()[0])
     # the solver with its baselines and sharded backends, the models (MoE
     # included), serving with its governor, telemetry, the load generator
-    # and the launcher
-    assert n_modules >= 71
+    # and the launcher, and the training path: data, training, the steps
+    # and the training launcher
+    assert n_modules >= 80
     for name in ("models.moe", "telemetry.bus", "telemetry.sinks",
                  "serving.governor", "loadgen.traces", "loadgen.driver",
                  "launch.serve", "core.baselines", "distributed.solver_mesh",
-                 "distributed.multihost"):
+                 "distributed.multihost", "data.pipeline",
+                 "training.losses", "training.optim", "training.checkpoint",
+                 "training.loop", "launch.steps", "launch.train"):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -99,6 +102,17 @@ def test_no_card_means_no_silent_cpu_fallback():
     model = transformer.init(torch.Generator().manual_seed(0), mcfg, "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SplitInferenceCluster(model, mcfg, prof)
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.training import loop
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.for_config(mcfg, 8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.init_train_state(mcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(mcfg, steps=1, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "recurrentgemma-2b", "--tiny", "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
