@@ -156,6 +156,36 @@ each with its timings:
                 kernels by device time.  Neither training phase may
                 launch a kernel (the kernels refuse gradients): each
                 kernel's count on both paths is 0
+ 20. mesh       the sharded train step (``distributed.sharding``,
+                ``launch.mesh``) on a 2 x 2 ("data", "model") mesh of four
+                child processes sharing cuda:0 in one gloo group, with
+                ``launch.mesh.gloo_all_gather`` as the all-gather
+                transport (named in the line): llama3-8b, dbrx-132b and
+                mamba2-780m at their tiny float32 configs (d_model 256,
+                d_ff 512), one sharded step against the unsharded one on
+                the card at the JAX suite's bars (loss 1e-4, weights
+                2e-4 after an lr-sized first step) and the gradients
+                within 1e-5 of each leaf's max; then internlm2-1.8b at
+                full width and depth: the first batch's sharded
+                gradients against the parent's, and two sharded steps
+                against the parent's two unsharded steps from the same
+                weights and batches (loss within 1e-3 relative, each
+                leaf's weights against its own update); a half-batch
+                control, which must fail the gradient and update bars;
+                each rank's step ms, peak GiB and collective bytes by
+                type (the first step counted by ``launch.hlo_cost``) and
+                the kernels' launches the children count (path
+                ``mesh_train``: 0 each)
+ 21. dry run    ``launch.dryrun.run_pair`` on the production meshes under a
+                fake process group of 256 / 512 ranks, on ``meta``:
+                internlm2-1.8b train_4k and mixtral-8x22b decode_32k on
+                16 x 16, mamba2-780m long_500k on 2 x 16 x 16; each pair's
+                per-chip bytes against 80 GB, FLOPs, collective bytes and
+                roofline row (``launch.roofline``), and the card's
+                total_memory beside the data sheet's 80 GB (path
+                ``dryrun``, 0 launches); first ``launch.hlo_cost``'s count
+                of one sharded product under this torch's DTensor: one
+                rank's 1/256 of the global FLOPs
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -172,6 +202,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import socket
@@ -267,6 +298,40 @@ FULL_ARCH, FULL_SEQ, FULL_BATCH = "internlm2-1.8b", 4096, 4
 FULL_STEPS, FULL_TIMED = 12, 8      # timed: the median of the last 8
 # microbatches=2 against 1 from one state: the loss, relative
 MICROBATCH_RTOL = 2e-3
+# phase 20: four ranks on cuda:0 in one gloo group, a 2 x 2 ("data",
+# "model") mesh.  (a) the three families of the JAX suite's sharded-step
+# test at their tiny float32 configs, d_model 256, d_ff 512, 32 tokens at
+# batch 8, held to its bars: the loss within 1e-4, every weight within
+# 2e-4 (tests/test_distributed_equivalence.py), after one step at lr 3e-4
+# with a warmup of one step, so the update (lr·sign(g) on the first Adam
+# step) is larger than the bar; and every gradient leaf within 1e-5 of
+# its max |g| (phase 18's bar), which the half batch's gradients must
+# exceed (the control)
+MESH_AXES = (2, 2)
+MESH_ARCHS = ("llama3-8b", "dbrx-132b", "mamba2-780m")
+MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_GRAD_TOL = 1e-4, 2e-4, 1e-5
+# (b) internlm2-1.8b at full width and depth, phase 19's 4 x 4096 tokens,
+# two sharded steps against the parent's two unsharded steps from the
+# same weights and batches: the loss within 1e-3 relative (phase 19's
+# microbatch comparison of the same bf16 step summed in another order
+# holds 2e-3); the first batch's gradients, each leaf's largest error
+# against its max |g|; the weights after the two steps, each leaf's
+# distance from the unsharded ones over the unsharded update of that leaf
+# (||w - w_ref|| / ||w_ref - w0||; leaves that bf16 rounding keeps at
+# their start, the norms' ones, must stay there).  Both bars sit between
+# the sound run's readings and the least leaf of the half-batch control,
+# which the parent runs: gradients 1.020e-2 against 0.2448, updates
+# 7.854e-2 against 0.5729 (H100 80GB HBM3, 700 W; PERF.md §6)
+MESH_FULL_STEPS = 2
+MESH_FULL_LR = 1e-3
+MESH_FULL_LOSS_RTOL = 1e-3
+MESH_FULL_GRAD_TOL = 5e-2
+MESH_FULL_UPDATE_TOL = 0.25
+# phase 21: the dry run's pairs on the production meshes: (arch, shape,
+# the 2 x 16 x 16 mesh)
+DRYRUN_PAIRS = (("internlm2-1.8b", "train_4k", False),
+                ("mixtral-8x22b", "decode_32k", False),
+                ("mamba2-780m", "long_500k", True))
 
 
 def log(phase, **fields):
@@ -1046,6 +1111,419 @@ def phase_training_full(dev, by_path, kernel_fns, smi):
         microbatch2_max_param_diff=f"{mb_param_diff:.3e}",
         tol=MICROBATCH_RTOL)
     log("train_full", nvidia_smi=repr(smi), host_threads=n_threads,
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# phase 20's child: one rank of four on cuda:0, a 2 x 2 mesh over gloo
+# with the one-card mesh's all-gather transport.  It imports nothing of
+# JAX; its report carries the five kernels' launches on the sharded steps
+# (training runs the plain paths: every count must stay 0).
+MESH_CHILD = r"""
+import json, os, sys, time
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.data import pipeline
+from repro_torch.distributed import multihost
+from repro_torch.distributed.sharding import ShardingRules, full_tensor
+from repro_torch.kernels.era_step.kernel import era_step_fused
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
+from repro_torch.kernels.noma_rate.kernel import noma_rate
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+from repro_torch.kernels.ssd.kernel import ssd_scan
+from repro_torch.launch import hlo_cost, mesh as mesh_mod, steps
+from repro_torch.training import optim
+KERNELS = {"era_step": era_step_fused, "noma_rate": noma_rate,
+           "flash_attention": flash_attention_bshd,
+           "rglru_scan": rglru_scan, "ssd": ssd_scan}
+rank = multihost.initialize_from_env().process_id
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+data_ax, model_ax = (int(v) for v in os.environ["MESH_AXES"].split(","))
+mesh = mesh_mod.make_host_mesh(data_ax, model_ax, device_type="cuda")
+assert mesh_mod.ranks_share_a_card(data_ax * model_ax)
+seed = int(os.environ["MESH_SEED"])
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def stage(name):
+    print(f"MESH_STAGE rank={rank} {name}", flush=True)
+
+
+def zero_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def add_counts():
+    for name, fn in KERNELS.items():
+        launches[name] += fn.launches
+
+
+def grad_errs(grads, want):
+    # each leaf's largest error against its largest |g|; the DTensors are
+    # gathered on every rank (a collective), compared where want is given
+    errs = {}
+    for k, g in grads.items():
+        g = full_tensor(g).float()
+        if want is not None:
+            w = want[k].to(g.device).float()
+            errs[k] = float((g - w).abs().max()
+                            / w.abs().max().clamp_min(1e-30))
+    return errs
+
+
+def half(batch):
+    return {k: x[:x.shape[0] // 2] for k, x in batch.items()}
+
+
+report = {"rank": rank, "tiny": {}}
+with mesh_mod.gloo_all_gather():
+    for arch in os.environ["MESH_ARCHS"].split(","):
+        stage(f"tiny {arch}")
+        cfg = get_tiny_config(arch).replace(dtype="float32", d_model=256,
+                                            d_ff=512)
+        batch = pipeline.for_config(cfg, 32, 8, device=dev).batch(0, 0)
+        new = lambda: steps.init_train_state(
+            cfg, torch.Generator().manual_seed(0), dev)
+        # one warmup step: the first update moves each weight by lr
+        opt_cfg = optim.AdamWConfig(warmup_steps=1)
+        ref = new()
+        _, _, g_ref = steps.make_grad_fn(cfg)(ref["params"], batch)
+        ref, ref_m = steps.make_train_step(cfg, opt_cfg)(ref, batch)
+        rules = ShardingRules(cfg, mesh, mode="train")
+        place = lambda b: {k: rules.place(x, rules.batch_spec(x.shape))
+                           for k, x in b.items()}
+        state = rules.distribute_state(new())
+        grad_fn = steps.make_grad_fn(cfg, constrain=rules.constrain)
+        step = steps.make_train_step(cfg, opt_cfg, constrain=rules.constrain)
+        zero_counts()
+        with implicit_replication():
+            _, _, g_sh = grad_fn(state["params"], place(batch))
+            _, _, g_half = grad_fn(state["params"], place(half(batch)))
+            got, m = step(state, place(batch))
+        add_counts()
+        grad = grad_errs(g_sh, g_ref)
+        control = grad_errs(g_half, g_ref)
+        loss = float(full_tensor(m["loss"]))
+        diff = max(float((full_tensor(b.detach()) - a.detach()).abs().max())
+                   for a, b in zip(ref["params"].parameters(),
+                                   got["params"].parameters()))
+        report["tiny"][arch] = {
+            "loss_err": abs(loss - float(ref_m["loss"])),
+            "param_err": diff, "grad_err": max(grad.values()),
+            "half_batch_grad_err": max(control.values()),
+            "half_batch_grad_err_min": min(control.values())}
+        del ref, got, g_ref, g_sh, g_half
+    # four ranks share the card: hand the tiny runs' cached blocks back
+    torch.cuda.empty_cache()
+    stage("full")
+    cfg = get_config(os.environ["MESH_FULL_ARCH"])
+    n_steps = int(os.environ["MESH_FULL_STEPS"])
+    opt_cfg = optim.AdamWConfig(lr=float(os.environ["MESH_FULL_LR"]),
+                                warmup_steps=1, total_steps=n_steps)
+    rules = ShardingRules(cfg, mesh, mode="train")
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(seed),
+                                   dev, rules=rules)
+    batches = torch.load(os.environ["MESH_BATCHES"])
+    place = lambda b: {k: rules.place(x.to(dev), rules.batch_spec(x.shape))
+                       for k, x in b.items()}
+    step = steps.make_train_step(cfg, opt_cfg, constrain=rules.constrain)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # the first batch's gradients, against the parent's unsharded ones
+    with implicit_replication():
+        _, _, g_sh = steps.make_grad_fn(cfg, constrain=rules.constrain)(
+            state["params"], place(batches[0]))
+    g_ref = (torch.load(os.environ["MESH_REF_GRADS"], mmap=True)
+             if rank == 0 else None)
+    grad = grad_errs(g_sh, g_ref)
+    del g_sh, g_ref
+    stage("full gradients")
+    losses, step_ms, coll = [], [], None
+    for i in range(n_steps):
+        batch = place(batches[i])
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with implicit_replication():
+            if i == 0:
+                with hlo_cost.CostMode() as mode:
+                    state, m = step(state, batch)
+                coll = mode.cost.coll_bytes
+            else:
+                state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(full_tensor(m["loss"])))
+        stage(f"full step {i}")
+    add_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    # each leaf's distance from the parent's weights after the same steps,
+    # over the parent's own update of that leaf (leaves bf16 rounding kept
+    # at their start are counted apart)
+    if rank == 0:
+        ref = torch.load(os.environ["MESH_REF"], mmap=True)
+        moved = torch.load(os.environ["MESH_REF_UPDATES"])
+    ratio, unmoved = {}, 0
+    for name, p in state["params"].named_parameters():
+        w = full_tensor(p.detach())
+        if rank == 0:
+            d = float((w.float() - ref[name].to(dev).float()).norm())
+            if moved[name] > 0:
+                ratio[name] = d / moved[name]
+            elif d > 0:
+                ratio[name] = float("inf")
+            else:
+                unmoved += 1
+    report.update(full_losses=losses, full_step_ms=step_ms,
+                  full_peak_GiB=peak, full_reserved_GiB=reserved,
+                  full_coll_bytes_first_step=coll, launches=launches)
+    if rank == 0:
+        worst_g = max(grad, key=grad.get)
+        worst_u = max(ratio, key=ratio.get)
+        report.update(full_grad_err=grad[worst_g], full_grad_leaf=worst_g,
+                      full_update_err=ratio[worst_u],
+                      full_update_leaf=worst_u, full_unmoved_leaves=unmoved)
+print("MESH_CHILD " + json.dumps(report), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _leaf_err(got, want):
+    """A gradient leaf's largest error against its largest |value|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def phase_mesh(dev, by_path, kernel_fns):
+    """Phase 20: the sharded train step on a 2 x 2 mesh of four ranks
+    sharing the card (module docs)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.training import optim
+    t_phase = time.perf_counter()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    # the unsharded reference: the first batch's gradients, the full and
+    # the half batch's; two full-width steps; two steps of half batches
+    # from the same weights (the control); then freed
+    cfg = configs.get_config(FULL_ARCH)
+    opt_cfg = optim.AdamWConfig(lr=MESH_FULL_LR, warmup_steps=1,
+                                total_steps=MESH_FULL_STEPS)
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                   dev)
+    params = dict(state["params"].named_parameters())
+    w0 = {n: p.detach().clone() for n, p in params.items()}
+    data = pipeline.for_config(cfg, FULL_SEQ, FULL_BATCH, seed=SEED,
+                               device=dev)
+    batches = [data.batch(0, i) for i in range(MESH_FULL_STEPS)]
+    half = lambda b: {k: x[:x.shape[0] // 2] for k, x in b.items()}
+    grad_fn = steps.make_grad_fn(cfg)
+    _, _, g_ref = grad_fn(state["params"], batches[0])
+    g_ref = {k: g.cpu() for k, g in g_ref.items()}
+    _, _, g_half = grad_fn(state["params"], half(batches[0]))
+    half_grad = {k: _leaf_err(g, g_ref[k].to(dev)) for k, g in g_half.items()}
+    del g_half
+
+    def run(feed):
+        state["opt"].step.zero_()
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(w0[n])
+            for d in (state["opt"].m, state["opt"].v):
+                for x in d.values():
+                    x.zero_()
+        step = steps.make_train_step(cfg, opt_cfg)
+        losses, ms = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, feed(batch))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        return losses, ms
+
+    ref_losses, ref_ms = run(lambda b: b)
+    w_ref = {n: p.detach().clone() for n, p in params.items()}
+    moved = {n: float((w_ref[n].float() - w0[n].float()).norm())
+             for n in params}
+    run(half)
+    half_update = {n: float((p.detach().float() - w_ref[n].float()).norm())
+                   / moved[n] for n, p in params.items() if moved[n] > 0}
+    parent_launches = {n: fn.launches for n, fn in kernel_fns.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.pt")
+                 for k in ("ref", "grads", "updates", "batches")}
+        torch.save({n: w.cpu() for n, w in w_ref.items()}, paths["ref"])
+        torch.save(g_ref, paths["grads"])
+        torch.save(moved, paths["updates"])
+        torch.save([{k: x.cpu() for k, x in b.items()} for b in batches],
+                   paths["batches"])
+        del state, params, w0, w_ref, g_ref, batches, data
+        torch.cuda.empty_cache()
+        held_gib = torch.cuda.memory_allocated() / 2**30
+        reserved_gib = torch.cuda.memory_reserved() / 2**30
+        t0 = time.perf_counter()
+        outs = run_children(MESH_CHILD, math.prod(MESH_AXES), {
+            "MESH_AXES": ",".join(map(str, MESH_AXES)),
+            "MESH_ARCHS": ",".join(MESH_ARCHS), "MESH_SEED": str(SEED),
+            "MESH_FULL_ARCH": FULL_ARCH,
+            "MESH_FULL_STEPS": str(MESH_FULL_STEPS),
+            "MESH_FULL_LR": repr(MESH_FULL_LR), "MESH_REF": paths["ref"],
+            "MESH_REF_GRADS": paths["grads"],
+            "MESH_REF_UPDATES": paths["updates"],
+            "MESH_BATCHES": paths["batches"],
+            # four processes' caching allocators share one card: segments
+            # that grow in place leave less of it stranded
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        children_s = time.perf_counter() - t0
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith("MESH_CHILD "))[11:])
+               for out in outs]
+    # the path's own count: the four ranks' sharded steps
+    for name in kernel_fns:
+        by_path[name]["mesh_train"] = sum(r["launches"][name]
+                                          for r in reports)
+    tiny = reports[0]["tiny"]
+    lead = reports[0]
+    losses = lead["full_losses"]
+    loss_rel = max(abs(a / b - 1.0) for a, b in zip(losses, ref_losses))
+    worst_half_grad = min(half_grad, key=half_grad.get)
+    worst_half_update = min(half_update, key=half_update.get)
+    log("mesh", ranks=len(reports), mesh="x".join(map(str, MESH_AXES)),
+        device="cuda:0 (one card)", backend="gloo",
+        transport=repr(mesh_mod.GLOO_ALL_GATHER),
+        tiny=json.dumps({a: {k: float(f"{v:.3e}") for k, v in e.items()}
+                         for a, e in tiny.items()}).replace(" ", ""),
+        tiny_tol=f"loss {MESH_LOSS_TOL}, weights {MESH_PARAM_TOL} (lr 3e-4, "
+                 f"warmup 1), gradients {MESH_GRAD_TOL} of each leaf's max; "
+                 f"the half-batch gradients must exceed it")
+    log("mesh_full", model=cfg.name, layers=cfg.n_layers, seq=FULL_SEQ,
+        batch=FULL_BATCH, steps=MESH_FULL_STEPS, ref_losses=ref_losses,
+        losses=losses, loss_rel=f"{loss_rel:.3e}",
+        ref_step_ms=json.dumps([round(t, 1) for t in ref_ms]))
+    log("mesh_full", grad_err=f"{lead['full_grad_err']:.3e}",
+        grad_leaf=lead["full_grad_leaf"],
+        update_err=f"{lead['full_update_err']:.3e}",
+        update_leaf=lead["full_update_leaf"],
+        unmoved_leaves=lead["full_unmoved_leaves"],
+        tol=f"loss {MESH_FULL_LOSS_RTOL} rel, gradients "
+            f"{MESH_FULL_GRAD_TOL} of each leaf's max, updates "
+            f"{MESH_FULL_UPDATE_TOL} of each leaf's")
+    log("mesh_full_control", half_batch_grad_err_min=(
+            f"{half_grad[worst_half_grad]:.3e}"),
+        half_batch_grad_err_median=f"{np.median(list(half_grad.values())):.3e}",
+        grad_leaf=worst_half_grad,
+        half_batch_update_err_min=f"{half_update[worst_half_update]:.3e}",
+        half_batch_update_err_median=(
+            f"{np.median(list(half_update.values())):.3e}"),
+        update_leaf=worst_half_update)
+    for r in reports:
+        log("mesh_rank", rank=r["rank"],
+            step_ms=json.dumps([round(t, 1) for t in r["full_step_ms"]]),
+            peak_GiB=f"{r['full_peak_GiB']:.2f}",
+            reserved_GiB=f"{r['full_reserved_GiB']:.2f}",
+            coll_bytes_first_step=json.dumps(
+                r["full_coll_bytes_first_step"]).replace(" ", ""),
+            launches=json.dumps(r["launches"]).replace(" ", ""))
+    log("mesh", held_by_parent_GiB=f"{held_gib:.2f}",
+        reserved_by_parent_GiB=f"{reserved_gib:.2f}",
+        children_s=f"{children_s:.1f}",
+        launches=json.dumps({n: by_path[n]["mesh_train"]
+                             for n in kernel_fns}).replace(" ", ""),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if any(parent_launches.values()) or any(
+            by_path[n]["mesh_train"] for n in kernel_fns):
+        raise AssertionError(f"a kernel was launched on the mesh path: "
+                             f"{parent_launches}, {[r['launches'] for r in reports]}")
+    for arch, e in tiny.items():
+        if not (e["loss_err"] < MESH_LOSS_TOL
+                and e["param_err"] < MESH_PARAM_TOL
+                and e["grad_err"] <= MESH_GRAD_TOL):
+            raise AssertionError(f"{arch}: the sharded step differs from "
+                                 f"the unsharded one: {e}")
+        if not e["half_batch_grad_err"] > MESH_GRAD_TOL:
+            raise AssertionError(f"{arch}: the half-batch control passes "
+                                 f"the gradient bar: {e}")
+    if not (loss_rel <= MESH_FULL_LOSS_RTOL
+            and lead["full_grad_err"] <= MESH_FULL_GRAD_TOL
+            and lead["full_update_err"] <= MESH_FULL_UPDATE_TOL):
+        raise AssertionError(f"{FULL_ARCH} on the mesh: losses {losses} "
+                             f"against {ref_losses}; {lead}")
+    # the control: half the batch fails both bars on every leaf
+    if not (half_grad[worst_half_grad] > MESH_FULL_GRAD_TOL
+            and half_update[worst_half_update] > MESH_FULL_UPDATE_TOL):
+        raise AssertionError("the half-batch control passes a bar: "
+                             f"{worst_half_grad} {half_grad[worst_half_grad]}"
+                             f", {worst_half_update} "
+                             f"{half_update[worst_half_update]}")
+
+
+def phase_dryrun(dev, by_path, kernel_fns):
+    """Phase 21: the dry run's pairs on the production meshes (module
+    docs); ``meta`` tensors under a fake process group, nothing on the
+    card."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch import dryrun, hlo_cost, mesh as mesh_mod
+    from repro_torch.launch import roofline
+    t_phase = time.perf_counter()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # this torch's DTensor counted per rank, its shape-only propagation
+    # left out: a (Shard(0), Shard(1)) product on 16 x 16 is 1/256 of the
+    # global 2·M·N·K, with no collective
+    m_, k_, n_ = 256, 4096, 14336
+    with dryrun.fake_world(256):
+        mesh = mesh_mod.make_production_mesh()
+        x = distribute_tensor(torch.empty(m_, k_, dtype=torch.bfloat16,
+                                          device="meta"), mesh,
+                              [Shard(0), Replicate()], src_data_rank=None)
+        w = distribute_tensor(torch.empty(k_, n_, dtype=torch.bfloat16,
+                                          device="meta"), mesh,
+                              [Replicate(), Shard(1)], src_data_rank=None)
+        with hlo_cost.CostMode() as mode:
+            x @ w
+    if not (mode.cost.flops == 2.0 * m_ * n_ * k_ / 256
+            and mode.cost.coll_bytes == {}):
+        raise AssertionError(f"hlo_cost's per-rank count: {mode.cost}")
+    for arch, shape, multi_pod in DRYRUN_PAIRS:
+        rec = dryrun.run_pair(arch, shape, multi_pod=multi_pod)
+        row = roofline.roofline_row(rec)
+        m, pc = rec["mem"], rec["per_chip"]
+        if not (rec["ok"] and pc["flops"] > 0):
+            raise AssertionError(f"the dry run of {arch} {shape}: {rec}")
+        log("dryrun", pair=dryrun.pair_key(arch, shape, multi_pod),
+            n_chips=rec["n_chips"], trace_s=rec["trace_s"],
+            microbatches=f"{rec['traced_microbatches']}"
+                         f"/{rec['microbatches']}",
+            per_chip_GB=f"{m['per_chip_bytes'] / 1e9:.3f}",
+            chip_hbm_GB=f"{dryrun.CHIP_HBM_BYTES / 1e9:.1f}",
+            fits_80gb=m["fits_80gb"], flops=f"{pc['flops']:.4e}",
+            write_bytes=f"{pc['write_bytes']:.4e}",
+            collective_bytes=json.dumps(
+                {k: f"{v:.4e}" for k, v in pc["collective_bytes"].items()}
+            ).replace(" ", ""))
+        log("dryrun_roofline", pair=dryrun.pair_key(arch, shape, multi_pod),
+            compute_s=f"{row['compute_s']:.4e}",
+            memory_s=f"{row['memory_s']:.4e}",
+            collective_s=f"{row['collective_s']:.4e}",
+            dominant=row["dominant"],
+            useful_ratio=f"{row['useful_ratio']:.3f}",
+            lever=repr(roofline.lever(row)))
+    for name, fn in kernel_fns.items():
+        by_path[name]["dryrun"] = fn.launches
+    log("dryrun", card_total_memory_GB=f"{total / 1e9:.3f}",
+        per_rank_product_flops=f"{mode.cost.flops:.4e}",
+        chip_hbm_bytes=f"{dryrun.CHIP_HBM_BYTES:.0f}",
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
@@ -2303,6 +2781,11 @@ def main():
                  "rglru_scan": rglru_scan, "ssd": ssd_scan}
     phase_training_tiny(dev, by_path, train_fns)
     phase_training_full(dev, by_path, train_fns, smi)
+
+    # ---- 20–21. the mesh and the dry run --------------------------------
+    # the plain paths again (0 launches); the dry run runs on ``meta``
+    phase_mesh(dev, by_path, train_fns)
+    phase_dryrun(dev, by_path, train_fns)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

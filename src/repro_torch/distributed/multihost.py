@@ -75,10 +75,12 @@ def host_info() -> HostInfo:
     return HostInfo(process_index(), process_count(), n_local)
 
 
-def initialize_from_env() -> HostInfo:
+def initialize_from_env(backend: str = "gloo") -> HostInfo:
     """Join (or host) the process group the ``REPRO_MH_*`` variables
     describe; a no-op single-process ``HostInfo`` when the coordinator
-    variable is unset.  Idempotent."""
+    variable is unset.  Idempotent.  ``backend`` as
+    ``init_process_group`` takes it (the sharded launcher passes
+    ``"cpu:gloo,cuda:nccl"`` when every rank has a card of its own)."""
     coord = os.environ.get(ENV_COORDINATOR)
     if coord is None or dist.is_initialized():
         return host_info()
@@ -89,7 +91,7 @@ def initialize_from_env() -> HostInfo:
                          f"[0, {ENV_NUM_PROCESSES}={n_procs})")
     if n_procs > 1:
         dist.init_process_group(
-            "gloo", init_method=f"tcp://{coord}", world_size=n_procs,
+            backend, init_method=f"tcp://{coord}", world_size=n_procs,
             rank=pid, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     return host_info()
 

@@ -14,6 +14,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
 
 def resolve_device(device=None) -> torch.device:
     """``device=None`` means the CUDA card; raises when none is present.
@@ -60,3 +62,14 @@ def describe() -> Dict:
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
         "nvidia_smi": nvidia_smi(),
     }
+
+
+def roofline_peaks() -> Dict:
+    """Peak FLOP/s and memory bandwidth for roofline ratios: the H100's
+    data-sheet constants (``launch/mesh.py``) where a card is present,
+    else the JAX package's CPU class figures — good enough to CLASSIFY a
+    step as compute- or memory-bound, not to predict its time."""
+    if torch.cuda.is_available():
+        return {"peak_flops": PEAK_FLOPS_BF16, "mem_bw": HBM_BW,
+                "basis": "h100-sxm"}
+    return {"peak_flops": 5e11, "mem_bw": 5e10, "basis": "cpu-class"}

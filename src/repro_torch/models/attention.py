@@ -2,16 +2,26 @@
 naive path (tests), two chunked paths (long prefill without an S×S
 buffer), the hand-written flash-attention kernel, and a ring-buffer
 KV-cache decode step.
+
+``constrain(x, name)`` is the sharding hook of the distributed layer
+(``distributed.sharding.ShardingRules.constrain``), called where the JAX
+package calls it: ``"heads"`` on q and the head-expanded k/v of the plain
+paths, ``"heads_decode"`` in decode; ``set_score_constrain`` installs the
+``"attn_scores"`` hook on the score tensors.  Both default to the
+identity, so an unsharded model computes exactly what it did without
+them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import (Params, apply_mrope, apply_rope,
-                                       dense_init, dtype_of)
+                                       dense_init, dtype_of, no_constrain,
+                                       settled)
 
 NEG_INF = -2.0e38
 IMPLS = ("naive", "chunked", "chunked_tri", "kernel")
@@ -42,10 +52,12 @@ def _rope(cfg, x, positions):
 
 
 def _project_qkv(params, cfg, x, positions):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied.  On a
+    mesh each comes out settled with its sequence whole (Megatron's
+    sequence-parallel gather before attention): DTensor's score products
+    fail on a sequence-sharded operand."""
+    q, k, v = (settled(torch.einsum("bsd,dhk->bshk", x, w), whole=(1,))
+               for w in (params.wq, params.wk, params.wv))
     if cfg.attn_qkv_bias:
         q = q + params.bq
         k = k + params.bk
@@ -53,14 +65,48 @@ def _project_qkv(params, cfg, x, positions):
     return _rope(cfg, q, positions), _rope(cfg, k, positions), v
 
 
+# module-level score-sharding hook, set by the distributed layer for archs
+# whose head count doesn't divide the model axis (musicgen 24H): sharding
+# the key axis of the scores splits the otherwise-replicated attention
+# compute (context parallelism).  Default: identity.
+_SCORE_CONSTRAIN = [no_constrain]
+
+
+def set_score_constrain(fn):
+    _SCORE_CONSTRAIN[0] = fn or no_constrain
+
+
 def _sdpa(q, k, v, mask, scale):
     """q (B,S,H,hd), k/v (B,T,H,hd) (kv already head-expanded), mask
     broadcastable to (B,1,S,T).  Scores in float32, softmax, probabilities
-    back in q's dtype."""
+    back in q's dtype.
+
+    On a mesh whose q, k and v share one layout that splits the batch
+    or the heads and nothing else, every (batch, head) pair is whole on
+    one rank: each rank attends its own shards, as GSPMD would (DTensor's
+    score products flatten (batch, heads), which torch 2.11's DTensor
+    refuses when both are sharded, and crawl on a three-axis mesh)."""
+    if _heads_local(q, k, v):
+        out = _sdpa(q.to_local(), k.to_local(), v.to_local(), mask, scale)
+        return DTensor.from_local(out, q.device_mesh, q.placements)
     scores = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    scores = _SCORE_CONSTRAIN[0](scores, "attn_scores")
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _heads_local(q, k, v):
+    """q, k and v are DTensors of one layout that shards the batch or
+    the heads and nothing else, and no score hook is set (a hook's
+    layout splits the key axis, which needs the scores on the mesh)."""
+    if not isinstance(q, DTensor) or _SCORE_CONSTRAIN[0] is not no_constrain:
+        return False
+    p = q.placements
+    return (all(isinstance(t, DTensor) and t.placements == p
+                for t in (k, v))
+            and any(x in (Shard(0), Shard(2)) for x in p)
+            and all(x in (Replicate(), Shard(0), Shard(2)) for x in p))
 
 
 def _expand_kv(k, n_heads):
@@ -69,7 +115,7 @@ def _expand_kv(k, n_heads):
     return k.repeat_interleave(reps, dim=2) if reps > 1 else k
 
 
-def _attend(q, k, v, window, scale, impl, q_chunk):
+def _attend(q, k, v, window, scale, impl, q_chunk, constrain=no_constrain):
     b, s, h, hd = q.shape
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, causal=True, window=window,
@@ -80,16 +126,19 @@ def _attend(q, k, v, window, scale, impl, q_chunk):
         mask = kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        return _sdpa(q, _expand_kv(k, h), _expand_kv(v, h), mask[None, None],
-                     scale)
+        kf = constrain(_expand_kv(k, h), "heads")
+        vf = constrain(_expand_kv(v, h), "heads")
+        return _sdpa(constrain(q, "heads"), kf, vf, mask[None, None], scale)
     if impl == "chunked":
-        return _chunked_forward(q, k, v, window, scale, q_chunk)
+        return _chunked_forward(q, k, v, window, scale, q_chunk, constrain)
     if impl == "chunked_tri":
-        return _chunked_tri_forward(q, k, v, window, scale, q_chunk)
+        return _chunked_tri_forward(q, k, v, window, scale, q_chunk,
+                                    constrain)
     raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
-def _chunked_tri_forward(q, k, v, window, scale, q_chunk):
+def _chunked_tri_forward(q, k, v, window, scale, q_chunk,
+                         constrain=no_constrain):
     """Triangular chunked attention: a loop over query chunks with key
     slices k[:, :(i+1)·qc], so the causal upper triangle is never
     computed."""
@@ -97,8 +146,9 @@ def _chunked_tri_forward(q, k, v, window, scale, q_chunk):
     qc = min(q_chunk, s)
     if s % qc:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {qc}")
-    k = _expand_kv(k, h)
-    v = _expand_kv(v, h)
+    k = constrain(_expand_kv(k, h), "heads")
+    v = constrain(_expand_kv(v, h), "heads")
+    q = constrain(q, "heads")
     outs = []
     for i in range(s // qc):
         hi = (i + 1) * qc
@@ -113,7 +163,7 @@ def _chunked_tri_forward(q, k, v, window, scale, q_chunk):
     return torch.cat(outs, dim=1)
 
 
-def _chunked_forward(q, k, v, window, scale, q_chunk):
+def _chunked_forward(q, k, v, window, scale, q_chunk, constrain=no_constrain):
     """Loop over query chunks.  Local attention slices a (window + qc) key
     band so compute is O(S·W); global attention scores each chunk against
     the full key range and masks."""
@@ -121,8 +171,9 @@ def _chunked_forward(q, k, v, window, scale, q_chunk):
     qc = min(q_chunk, s)
     if s % qc:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {qc}")
-    k = _expand_kv(k, h)
-    v = _expand_kv(v, h)
+    k = constrain(_expand_kv(k, h), "heads")
+    v = constrain(_expand_kv(v, h), "heads")
+    q = constrain(q, "heads")
     band = s if not window else min(s, window + qc)
     outs = []
     for i in range(s // qc):
@@ -141,7 +192,7 @@ def _chunked_forward(q, k, v, window, scale, q_chunk):
 
 
 def forward(params, cfg, x, positions, mixer="attn", impl="kernel",
-            q_chunk=1024):
+            q_chunk=1024, constrain=no_constrain):
     """Full-sequence causal attention (training / prefill).
 
     mixer: "attn" (global) or "local" (sliding window of cfg.window).
@@ -151,23 +202,33 @@ def forward(params, cfg, x, positions, mixer="attn", impl="kernel",
            on a CUDA tensor, its plain version on a CPU one; JAX's
            "pallas")
     """
-    y, _, _ = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk)
+    y, _, _ = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk,
+                          constrain)
     return y
 
 
-def _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk):
+def _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk, constrain):
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = cfg.window if mixer == "local" else 0
-    out = _attend(q, k, v, window, scale, impl, q_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, params.wo), k, v
+    out = _attend(q, k, v, window, scale, impl, q_chunk, constrain)
+    return _out_proj(params, out), k, v
+
+
+def _out_proj(params, out):
+    """(B,S,H,hd) -> (B,S,D).  On a mesh head_dim is gathered first: the
+    product flattens (H, hd), and DTensor (torch 2.11's) flattens only a
+    leading sharded dim."""
+    return torch.einsum("bshk,hkd->bsd", settled(out, whole=(3,)),
+                        params.wo)
 
 
 def prefill(params, cfg, x, positions, max_seq, mixer="attn", impl="kernel",
-            q_chunk=1024):
+            q_chunk=1024, constrain=no_constrain):
     """Forward + ring-buffer cache capture for subsequent decode."""
     b, s, _ = x.shape
-    y, k, v = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk)
+    y, k, v = _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk,
+                          constrain)
     size = min(max_seq, cfg.window) if mixer == "local" else max_seq
     n_keep = min(s, size)
     p0 = s - n_keep + torch.arange(n_keep, device=x.device)  # kept positions
@@ -195,7 +256,8 @@ def init_cache(cfg, batch, max_seq, mixer="attn", dtype=None, *, device):
     }
 
 
-def decode_step(params, cfg, x, pos, cache, mixer="attn"):
+def decode_step(params, cfg, x, pos, cache, mixer="attn",
+                constrain=no_constrain):
     """x (B,1,D); pos: the token's absolute position (an int).  Returns
     (y, cache); the cache is updated in place (the decode loop owns it)."""
     b = x.shape[0]
@@ -216,7 +278,8 @@ def decode_step(params, cfg, x, pos, cache, mixer="attn"):
     valid = (cpos >= 0) & (cpos <= pos)
     if window:
         valid &= cpos > pos - window
-    out = _sdpa(q, _expand_kv(cache["k"], cfg.n_heads),
-                _expand_kv(cache["v"], cfg.n_heads),
+    kf = constrain(_expand_kv(cache["k"], cfg.n_heads), "heads_decode")
+    vf = constrain(_expand_kv(cache["v"], cfg.n_heads), "heads_decode")
+    out = _sdpa(constrain(q, "heads_decode"), kf, vf,
                 valid[None, None, None, :], scale)
-    return torch.einsum("bshk,hkd->bsd", out, params.wo), cache
+    return _out_proj(params, out), cache

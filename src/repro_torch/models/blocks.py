@@ -7,6 +7,8 @@ Mixers: attention and local attention (``attention``), the RG-LRU
 (``rglru``) and the Mamba-2 SSD (``ssm``).  FFNs: dense (``ffn``) and the
 mixture of experts (``moe``), whose router aux loss ``forward`` and
 ``prefill`` return and ``decode`` drops, as the JAX package's blocks do.
+``constrain`` (the distributed layer's sharding hook, identity by
+default) is handed to attention and the MoE, as in JAX.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import Params, dtype_of, rms_norm
+from repro_torch.models.common import (Params, dtype_of, laid_as,
+                                       no_constrain, rms_norm, settled)
 
 
 def init(generator, cfg, spec, device):
@@ -40,23 +43,29 @@ def init(generator, cfg, spec, device):
 
 
 def _norm(cfg, x, w):
-    return rms_norm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_style)
+    """The pre-norm of a mixer or FFN input.  On a mesh its sequence is
+    gathered whole (Megatron's sequence-parallel gather: the residual
+    stream between blocks may be sequence-sharded, and a product over a
+    batch- and sequence-sharded input is one DTensor cannot flatten)."""
+    return settled(rms_norm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_style),
+                   whole=(1,))
 
 
-def _apply_ffn(params, cfg, spec, x):
+def _apply_ffn(params, cfg, spec, x, constrain=no_constrain):
     """Returns (y, aux); aux is the MoE balance loss, 0 for dense FFNs."""
     _, ffn_kind = spec
     if ffn_kind == "none":
         return x, 0.0
     h = _norm(cfg, x, params.norm2)
     if ffn_kind == "moe":
-        y, aux = moe.forward(params.ffn, cfg, h)
+        y, aux = moe.forward(params.ffn, cfg, h, constrain=constrain)
     else:
         y, aux = ffn_mod.forward(params.ffn, cfg, h), 0.0
-    return x + y, aux
+    return x + laid_as(y, x), aux
 
 
-def forward(params, cfg, spec, x, positions, impl="kernel"):
+def forward(params, cfg, spec, x, positions, impl="kernel",
+            constrain=no_constrain):
     """(x, positions) -> (x, aux). Full sequence, no cache capture.
     ``impl`` picks the attention path (``attention.IMPLS``), the SSD
     scan (``"kernel"``, else the plain chunked scan: ``ssm``'s docstring)
@@ -66,14 +75,14 @@ def forward(params, cfg, spec, x, positions, impl="kernel"):
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
         y = attention.forward(params.mixer, cfg, h, positions, mixer=mixer,
-                              impl=impl)
+                              impl=impl, constrain=constrain)
     elif mixer == "rec":
         y, _ = rglru.forward(params.mixer, cfg, h, impl=impl)
     elif mixer == "ssd":
         y = ssm.forward(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
-    return _apply_ffn(params, cfg, spec, x + y)
+    return _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
 
 
 # --------------------------------------------------------------------------- #
@@ -91,35 +100,37 @@ def init_cache(cfg, spec, batch, max_seq, dtype=None, *, device):
     raise ValueError(mixer)
 
 
-def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel"):
+def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel",
+            constrain=no_constrain):
     """Like forward, but also returns the decode cache."""
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
         y, cache = attention.prefill(params.mixer, cfg, h, positions,
-                                     max_seq, mixer=mixer, impl=impl)
+                                     max_seq, mixer=mixer, impl=impl,
+                                     constrain=constrain)
     elif mixer == "rec":
         y, cache = rglru.prefill(params.mixer, cfg, h)
     elif mixer == "ssd":
         y, cache = ssm.prefill(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
-    x, aux = _apply_ffn(params, cfg, spec, x + y)
+    x, aux = _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
     return x, cache, aux
 
 
-def decode(params, cfg, spec, x, pos, cache):
+def decode(params, cfg, spec, x, pos, cache, constrain=no_constrain):
     """Single-token step. x (B,1,D); pos: the absolute position (int)."""
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):
         y, cache = attention.decode_step(params.mixer, cfg, h, pos, cache,
-                                         mixer=mixer)
+                                         mixer=mixer, constrain=constrain)
     elif mixer == "rec":
         y, cache = rglru.decode_step(params.mixer, cfg, h, cache)
     elif mixer == "ssd":
         y, cache = ssm.decode_step(params.mixer, cfg, h, cache)
     else:
         raise ValueError(mixer)
-    x, _ = _apply_ffn(params, cfg, spec, x + y)
+    x, _ = _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
     return x, cache

@@ -8,10 +8,84 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def no_constrain(x, name):
+    """The models' default sharding hook: the identity (an unsharded
+    model; ``distributed.sharding.ShardingRules.constrain`` is the other
+    one)."""
+    return x
+
+
+def settled(x, whole=()):
+    """``x`` with a DTensor's pending partial sums reduced (``Partial``
+    placements made ``Replicate``) and the tensor dims ``whole`` gathered
+    (a ``Shard`` of them made ``Replicate``); anything else as it is.
+    DTensor keeps a product over a sharded contraction as a partial sum,
+    which several of its rules cannot take further (an embedding's row
+    mask, a product against a sequence-sharded operand)."""
+    if not isinstance(x, DTensor):
+        return x
+    want = [Replicate() if p.is_partial()
+            or (p.is_shard() and p.dim in whole) else p
+            for p in x.placements]
+    return x if want == list(x.placements) else \
+        x.redistribute(x.device_mesh, want)
+
+
+def laid_as(y, x):
+    """``y`` in ``x``'s layout when both are DTensors (explicitly, so that
+    autograd sees the move); anything else as it is.  An add moves its
+    operands implicitly, and autograd then hands ``y`` its gradient in
+    the sum's layout: a row-parallel product's output added to a
+    sequence-sharded residual would get a sequence-sharded gradient,
+    which the product's backward must flatten (torch 2.11's DTensor
+    flattens only a leading sharded dim)."""
+    if isinstance(y, DTensor) and isinstance(x, DTensor) \
+            and y.placements != x.placements:
+        return y.redistribute(x.device_mesh, x.placements)
+    return y
+
+
+def batch_local(fn, *args):
+    """``fn(*args)`` on each rank's own batch rows, where every DTensor
+    among ``args`` is batch-sharded (``Shard(0)``, all alike) or
+    replicated; None where they are laid out otherwise or none is a
+    DTensor (the caller then runs ``fn`` as it is).  ``fn`` must keep
+    batch rows apart and return a tensor, or a tuple of them, batch
+    leading: each comes back batch-sharded.  A replicated argument's
+    gradient is each rank's partial sum over its rows.  DTensor's
+    products flatten the batch with another sharded dim, which torch
+    2.11's DTensor refuses; a per-row scan needs no collective at all."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    rows = next((a.placements for a in dts if Shard(0) in a.placements),
+                None)
+    if rows is None or any(
+            a.placements not in (rows, (Replicate(),) * len(rows))
+            for a in dts) or any(p not in (Shard(0), Replicate())
+                                 for p in rows):
+        return None
+    mesh = dts[0].device_mesh
+    shared = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    local = [a if not isinstance(a, DTensor) else a.to_local()
+             if a.placements == rows else a.to_local(grad_placements=shared)
+             for a in args]
+    out = fn(*local)
+    wrap = lambda t: DTensor.from_local(t, mesh, rows)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def shift_right(x, i):
+    """x (B, L, C) shifted i steps along L with zeros in front, as a
+    concatenation (torch 2.11's DTensor takes it where its pad fails)."""
+    b, l, c = x.shape
+    return torch.cat([x.new_zeros((b, min(i, l), c)), x[:, :max(l - i, 0)]],
+                     dim=1)
 
 
 class Params(nn.Module):
@@ -38,7 +112,11 @@ class Params(nn.Module):
 def sub_generator(generator: torch.Generator, device) -> torch.Generator:
     """A generator on ``device`` seeded from the host ``generator``: each
     tensor draws its own stream, as ``jax.random.split`` gives each leaf its
-    own key, and fills on the device without a host copy."""
+    own key, and fills on the device without a host copy.  None on
+    ``meta`` (the dry run's abstract shapes), which has no generator and
+    no values to draw."""
+    if torch.device(device).type == "meta":
+        return None
     seed = int(torch.randint(0, 2**62, (), generator=generator))
     return torch.Generator(device=device).manual_seed(seed)
 

@@ -21,14 +21,26 @@ choices made explicit for torch:
     buffer equals JAX's (whose dropped rows add exact zeros) and is
     bit-identical from run to run on the card.
 
-No hand-written kernel backs this module: the expert FFN is batched
-``torch.matmul`` over (G, E, C, d) and ``common.activate``.
+No hand-written kernel backs this module: the expert FFN is
+``torch.einsum`` batched over E on (G, E, C, d) and ``common.activate``.
+
+``constrain`` is the distributed layer's sharding hook, called under
+JAX's names (``moe_groups``, ``moe_buf``, ``moe_buf_expert``).  On
+DTensors the routing, scatter and gather run on each rank's own groups
+(``_forward_sharded``): the distributed layer sets
+``moe_dispatch_groups`` to the data extent, as JAX's dry run does, so
+dispatch never leaves a rank, and ``moe_buf -> moe_buf_expert`` is the
+expert-parallel all-to-all.
 """
 from __future__ import annotations
 
-import torch
+import math
 
-from repro_torch.models.common import Params, activate, dense_init, dtype_of
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.models.common import (Params, activate, dense_init,
+                                       dtype_of, no_constrain)
 from repro_torch.models.ffn import is_gated
 
 # expert-FFN capacity chunk: bounds the (G, E, Cc, d_ff) hidden buffers of
@@ -60,22 +72,28 @@ def capacity(cfg, n_tokens: int) -> int:
     return c
 
 
-def route(params, cfg, x_flat):
-    """x_flat (..., T, d) -> (expert_idx (..., T, k) int64, gates (..., T, k)
-    float32, aux).  The router runs in float32."""
-    logits = torch.matmul(x_flat.float(), params.router)
+def _route(router, cfg, x_flat):
+    """(expert_idx, gates, me, ce): ``me`` the share of tokens whose first
+    choice is each expert and ``ce`` the mean router probability, each
+    over every leading axis of ``x_flat``."""
+    logits = torch.matmul(x_flat.float(), router)
     probs = torch.softmax(logits, dim=-1)
     # stable: equal probabilities keep their index order, as lax.top_k
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = vals[..., :cfg.top_k], order[..., :cfg.top_k]
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
-    e = cfg.n_experts
     lead = tuple(range(idx.ndim - 1))
-    me = torch.mean(torch.nn.functional.one_hot(idx[..., 0], e).float(),
-                    dim=lead)
+    me = torch.mean(torch.nn.functional.one_hot(idx[..., 0], cfg.n_experts)
+                    .float(), dim=lead)
     ce = torch.mean(probs, dim=lead)
-    aux = e * torch.sum(me * ce)
-    return idx, gate, aux
+    return idx, gate, me, ce
+
+
+def route(params, cfg, x_flat):
+    """x_flat (..., T, d) -> (expert_idx (..., T, k) int64, gates (..., T, k)
+    float32, aux).  The router runs in float32."""
+    idx, gate, me, ce = _route(params.router, cfg, x_flat)
+    return idx, gate, cfg.n_experts * torch.sum(me * ce)
 
 
 def groups(cfg, n_tokens: int) -> int:
@@ -99,51 +117,135 @@ def slots(cfg, idx, cap):
     return flat_e, pos, pos < cap
 
 
-def _expert_ffn(params, cfg, block):
+def _per_expert(block, w):
+    """(G, E, C, a) x (E, a, b) -> (G, E, C, b), as JAX's einsum: batched
+    over E with (G, C) flattened (a broadcasting matmul would expand the
+    expert weights over the G groups, and DTensor would gather and copy
+    them G times)."""
+    return torch.einsum("gecd,edf->gecf", block, w)
+
+
+def _expert_ffn(params, cfg, block, constrain=no_constrain):
     """(G, E, C, d) -> (G, E, C, d), every expert on its own rows."""
-    h_lin = torch.matmul(block, params.w_in)
+    h_lin = constrain(_per_expert(block, params.w_in), "moe_buf_expert")
     if is_gated(cfg.activation):
-        h = activate(torch.matmul(block, params.w_gate), h_lin,
-                     cfg.activation)
+        h_gate = constrain(_per_expert(block, params.w_gate),
+                           "moe_buf_expert")
+        h = activate(h_gate, h_lin, cfg.activation)
+        del h_gate
     else:
         h = activate(h_lin, h_lin, cfg.activation)
     del h_lin
-    return torch.matmul(h, params.w_out)
+    return constrain(_per_expert(h, params.w_out), "moe_buf_expert")
 
 
-def forward(params, cfg, x):
-    """x (B, S, d) -> (y, aux_loss)."""
-    b, s, d = x.shape
-    t = b * s
-    k, e = cfg.top_k, cfg.n_experts
-    g = groups(cfg, t)
-    tl = t // g
-    cap = capacity(cfg, tl)
+def _dispatch(router, cfg, xg, cap):
+    """Route the (G, Tl, d) groups and scatter each kept slot's token row
+    into a (G, E, C, d) capacity buffer, written once.  Returns (buf,
+    (flat_e, pos, keep, gate), me, ce)."""
+    g, tl, d = xg.shape
+    idx, gate, me, ce = _route(router, cfg, xg)          # (G, Tl, k)
+    flat_e, pos, keep = slots(cfg, idx, cap)             # (G, Tl·k)
+    if keep.is_meta:
+        # the dry run's abstract shapes have no keep bits to count: every
+        # slot is taken, the T·k rows JAX's scatter processes
+        tk = keep.shape[1]
+        kg = torch.arange(g, device=keep.device).repeat_interleave(tk)
+        ks = torch.arange(tk, device=keep.device).repeat(g)
+    else:
+        kg, ks = torch.nonzero(keep, as_tuple=True)
+    buf = torch.zeros((g, cfg.n_experts, cap, d), dtype=xg.dtype,
+                      device=xg.device)
+    buf[kg, flat_e[kg, ks], pos[kg, ks]] = xg[kg, ks // cfg.top_k]
+    return buf, (flat_e, pos, keep, gate), me, ce
 
-    xg = x.reshape(g, tl, d)
-    idx, gate, aux = route(params, cfg, xg)               # (G, Tl, k)
-    flat_e, pos, keep = slots(cfg, idx, cap)              # (G, Tl·k)
 
-    # dispatch: the kept slots' token rows, written once each
-    kg, ks = torch.nonzero(keep, as_tuple=True)
-    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=x.device)
-    buf[kg, flat_e[kg, ks], pos[kg, ks]] = xg[kg, ks // k]
-
-    if cap > C_CHUNK and cap % C_CHUNK == 0:
+def _experts(params, cfg, buf, cap, constrain):
+    """The expert FFN on the capacity buffer, ``C_CHUNK`` rows an expert
+    at a time for huge capacities; the dispatch and combine all-to-alls
+    are the ``moe_buf`` <-> ``moe_buf_expert`` constraints."""
+    # dispatch all-to-all: reshard to the compute layout (E -> model when
+    # expert-parallel); explicit, so the scatter stays shard-local
+    buf = constrain(constrain(buf, "moe_buf"), "moe_buf_expert")
+    chunked = cap > C_CHUNK and cap % C_CHUNK == 0
+    if isinstance(buf, DTensor):
+        # the chunks are joined by a cat: a slice write into a sharded
+        # buffer has no DTensor rule
+        parts = [_expert_ffn(params, cfg, buf[:, :, c0:c0 + C_CHUNK],
+                             constrain) for c0 in range(0, cap, C_CHUNK)] \
+            if chunked else [_expert_ffn(params, cfg, buf, constrain)]
+        out_buf = torch.cat(parts, dim=2) if chunked else parts[0]
+    elif chunked:
         out_buf = torch.empty_like(buf)
         for c0 in range(0, cap, C_CHUNK):
             out_buf[:, :, c0:c0 + C_CHUNK] = _expert_ffn(
                 params, cfg, buf[:, :, c0:c0 + C_CHUNK])
     else:
         out_buf = _expert_ffn(params, cfg, buf)           # (G, E, C, d)
-    del buf
+    # combine all-to-all: back to the dispatch layout
+    return constrain(out_buf, "moe_buf")
 
-    # combine: each slot's expert row times its gate; dropped slots add 0
+
+def _combine(cfg, out_buf, info, cap):
+    """Each slot's expert row times its gate, summed over the token's k
+    slots; dropped slots add 0.  (G, Tl, d)."""
+    flat_e, pos, keep, gate = info
+    g, tk = flat_e.shape
     safe_pos = torch.where(keep, pos, cap - 1)
-    gi = torch.arange(g, device=x.device)[:, None]
+    gi = torch.arange(g, device=flat_e.device)[:, None]
     gathered = out_buf[gi, flat_e, safe_pos]              # (G, Tl·k, d)
-    del out_buf
-    w = torch.where(keep, gate.reshape(g, tl * k).to(x.dtype),
-                    torch.zeros((), dtype=x.dtype, device=x.device))
-    y = (gathered * w[..., None]).reshape(g, tl, k, d).sum(dim=2)
-    return y.reshape(b, s, d), aux
+    w = torch.where(keep, gate.reshape(g, tk).to(out_buf.dtype),
+                    torch.zeros((), dtype=out_buf.dtype,
+                                device=out_buf.device))
+    k = cfg.top_k
+    return (gathered * w[..., None]).reshape(g, tk // k, k, -1).sum(dim=2)
+
+
+def forward(params, cfg, x, constrain=no_constrain):
+    """x (B, S, d) -> (y, aux_loss)."""
+    b, s, d = x.shape
+    g = groups(cfg, b * s)
+    tl = b * s // g
+    cap = capacity(cfg, tl)
+    xg = constrain(x.reshape(g, tl, d), "moe_groups")
+    if isinstance(xg, DTensor):
+        y, aux = _forward_sharded(params, cfg, xg, cap, constrain, b)
+        return y.reshape(b, s, d), aux
+    buf, info, me, ce = _dispatch(params.router, cfg, xg, cap)
+    out_buf = _experts(params, cfg, buf, cap, constrain)
+    del buf
+    y = _combine(cfg, out_buf, info, cap)
+    return y.reshape(b, s, d), cfg.n_experts * torch.sum(me * ce)
+
+
+def _forward_sharded(params, cfg, xg, cap, constrain, batch):
+    """``forward`` on DTensors: routing, the scatter and the gather run on
+    each rank's own groups (``torch.nonzero`` has no DTensor rule, and a
+    group's slots never leave it), with the groups on the mesh axes the
+    ``moe_groups`` layout gives them and everything else whole; the
+    expert FFN runs on the mesh.  The balance loss averages ``me`` and
+    ``ce`` over every group before their product, as on one device."""
+    mesh = xg.device_mesh
+    grp = tuple(Shard(0) if p == Shard(0) else Replicate()
+                for p in xg.placements)
+    # a rank's groups contribute its share of the router's gradient
+    shared = tuple(Partial() if p == Shard(0) else Replicate() for p in grp)
+    router = params.router.redistribute(
+        mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=shared)
+    buf, info, me, ce = _dispatch(
+        router, cfg, xg.redistribute(mesh, grp).to_local(), cap)
+    # each rank's means stacked along the group axes, averaged over them
+    me, ce = (DTensor.from_local(v[None], mesh, grp).mean(0)
+              for v in (me, ce))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    out_buf = _experts(params, cfg, DTensor.from_local(buf, mesh, grp), cap,
+                       constrain)
+    del buf
+    y = _combine(cfg, out_buf.redistribute(mesh, grp).to_local(), info, cap)
+    y = DTensor.from_local(y, mesh, grp)
+    if batch % math.prod(mesh.size(i) for i, p in enumerate(grp)
+                         if p == Shard(0)):
+        # a group is a part of a row: the rows cannot keep the groups'
+        # layout, so they are gathered whole
+        y = y.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return y, aux

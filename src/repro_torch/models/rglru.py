@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru_scan.ops import linear_scan
 from repro_torch.kernels.rglru_scan.ref import linear_scan_associative
 from repro_torch.models.common import (Params, dense_init, dtype_of, gelu,
-                                       sub_generator)
+                                       shift_right, sub_generator)
 
 
 def init(generator, cfg, device):
@@ -58,7 +58,7 @@ def _causal_conv(x, w, b):
     wsize = w.shape[0]
     out = x * w[-1]
     for i in range(1, wsize):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :-i, :]
+        shifted = shift_right(x, i)
         out = out + shifted * w[-1 - i]
     return out + b
 

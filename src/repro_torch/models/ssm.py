@@ -20,8 +20,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
-from repro_torch.models.common import (Params, dense_init, dtype_of,
-                                       rms_norm, sub_generator)
+from repro_torch.models.common import (Params, batch_local, dense_init,
+                                       dtype_of, rms_norm, settled,
+                                       shift_right, sub_generator)
 
 
 def _dims(cfg):
@@ -74,7 +75,7 @@ def _causal_conv(xbc, w, b):
     wsize = w.shape[0]
     out = xbc * w[-1]
     for i in range(1, wsize):
-        shifted = F.pad(xbc, (0, 0, i, 0))[:, :-i, :]
+        shifted = shift_right(xbc, i)
         out = out + shifted * w[-1 - i]
     return F.silu(out + b)
 
@@ -84,7 +85,9 @@ def _scan_inputs(params, cfg, x):
     (z, xbc before the conv, xs (B,L,H,P), B, C, dt (B,L,H) float32, A)."""
     b, l, _ = x.shape
     di, n, h, _ = _dims(cfg)
-    z, xbc_raw, dt_raw = _split(cfg, x @ params.in_proj)
+    # settled on a mesh: the product over a model-sharded d_model is a
+    # partial sum, which DTensor's pad (the conv's shifts) cannot take
+    z, xbc_raw, dt_raw = _split(cfg, settled(x @ params.in_proj))
     xbc = _causal_conv(xbc_raw, params.conv_w, params.conv_b)
     xs = xbc[..., :di].reshape(b, l, h, cfg.ssd_head_dim)
     B = xbc[..., di:di + n]
@@ -98,7 +101,10 @@ def _scan(params, cfg, xs, dt, A, B, C, impl):
     chunk = min(cfg.ssd_chunk, xs.shape[1])
     if impl == "kernel":
         return ssd_ops.ssd(xs, dt, A, B, C, params.D, chunk=chunk)
-    return ssd_ref.ssd_chunked(xs, dt, A, B, C, params.D, chunk=chunk)
+    scan = lambda *a: ssd_ref.ssd_chunked(*a, chunk=chunk)
+    # on a mesh each rank scans its own batch rows
+    out = batch_local(scan, xs, dt, A, B, C, params.D)
+    return scan(xs, dt, A, B, C, params.D) if out is None else out
 
 
 def _out(params, cfg, y, z):

@@ -10,6 +10,12 @@ for untied embeddings, ``lm_head``.  ``forward`` still walks the layers a
 pattern unit at a time (``cfg.pattern_len`` layers, then the tail), as the
 JAX scan does: ``remat=True`` checkpoints each unit, and the MoE aux loss
 sums per unit in JAX's order.
+
+``constrain(x, name)`` is the distributed layer's sharding hook
+(``distributed.sharding.ShardingRules.constrain``; names "resid" after
+the embedding, after each unit and each tail layer, and "logits"), handed
+down to the blocks; it defaults to the identity, so the model stays
+mesh-agnostic.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.platform import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.common import (Params, dense_init, dtype_of,
-                                       positions_for, rms_norm)
+                                       no_constrain, positions_for, rms_norm,
+                                       settled)
 
 
 # --------------------------------------------------------------------------- #
@@ -62,7 +69,11 @@ def param_count(params) -> int:
 # embedding / head
 # --------------------------------------------------------------------------- #
 def embed_tokens(params, cfg, tokens, vision_embeds=None):
-    """tokens: (B,S) integers, or (B,K,S) for multi-codebook audio."""
+    """tokens: (B,S) integers, or (B,K,S) for multi-codebook audio.  On a
+    mesh, DTensor's lookup in a vocab-sharded table is a masked partial
+    sum that it cannot move to another layout in one step: it is reduced
+    over the vocab's axis here, and the caller's "resid" constraint cuts
+    the result after."""
     tokens = tokens.long()
     if cfg.n_codebooks > 1:
         # sum codebook embeddings per step: tokens (B,K,S), embed (K,Vp,d)
@@ -70,6 +81,7 @@ def embed_tokens(params, cfg, tokens, vision_embeds=None):
                 for k in range(cfg.n_codebooks))
     else:
         x = F.embedding(tokens, params.embed)             # (B,S,d)
+    x = settled(x)
     if cfg.gemma_style:
         # the scale rounds to the embedding's dtype first, as in JAX
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -78,10 +90,11 @@ def embed_tokens(params, cfg, tokens, vision_embeds=None):
     return x
 
 
-def lm_logits(params, cfg, x):
+def lm_logits(params, cfg, x, constrain=no_constrain):
     """Float32 logits (B,S,V), or (B,S,K,V) for multi-codebook heads."""
-    x = rms_norm(x, params.final_norm, cfg.norm_eps,
-                 gemma_style=cfg.gemma_style)
+    # the sequence whole on a mesh, as before each block's products
+    x = settled(rms_norm(x, params.final_norm, cfg.norm_eps,
+                         gemma_style=cfg.gemma_style), whole=(1,))
     if cfg.n_codebooks > 1:
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,kvd->bskv", x, params.embed)
@@ -91,7 +104,7 @@ def lm_logits(params, cfg, x):
         logits = torch.matmul(x, params.embed.t())
     else:
         logits = torch.matmul(x, params.lm_head)
-    return logits.float()
+    return constrain(logits.float(), "logits")
 
 
 # --------------------------------------------------------------------------- #
@@ -105,17 +118,27 @@ def _stream(params, cfg, tokens, vision_embeds, positions):
     return x, positions
 
 
-def _run_layers(layers, cfg, specs, x, positions, impl):
-    """Blocks in order. Returns (x, the sum of their MoE aux losses)."""
+def _run_layers(layers, cfg, specs, x, positions, impl,
+                constrain=no_constrain):
+    """One pattern unit's blocks in order. Returns (x, the sum of their
+    MoE aux losses)."""
     aux = 0.0
     for spec, layer in zip(specs, layers):
-        x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl)
+        x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl,
+                              constrain=constrain)
         aux = aux + a
-    return x, aux
+    return constrain(x, "resid"), aux
+
+
+def _ends_unit(cfg, i) -> bool:
+    """Layer ``i`` closes a pattern unit, or is a tail layer: where JAX
+    constrains the residual stream."""
+    return i >= cfg.n_units * cfg.pattern_len or (i + 1) % cfg.pattern_len \
+        == 0
 
 
 def forward(params, cfg, tokens, vision_embeds=None, positions=None,
-            impl="kernel", remat=False):
+            impl="kernel", remat=False, constrain=no_constrain):
     """Full-sequence forward. Returns (logits, moe_aux).
 
     ``remat=True`` runs each pattern unit under ``torch.utils.checkpoint``
@@ -123,11 +146,13 @@ def forward(params, cfg, tokens, vision_embeds=None, positions=None,
     recomputes a unit's activations from its input, as
     ``jax.checkpoint(unit_body)`` does.  The tail layers stay outside."""
     x, positions = _stream(params, cfg, tokens, vision_embeds, positions)
+    x = constrain(x, "resid")
     n, specs = cfg.pattern_len, cfg.layer_specs
     aux_total = 0.0
     for u in range(cfg.n_units):
         lo, hi = u * n, (u + 1) * n
-        unit = (params.layers[lo:hi], cfg, specs[lo:hi], x, positions, impl)
+        unit = (params.layers[lo:hi], cfg, specs[lo:hi], x, positions, impl,
+                constrain)
         if remat:
             x, a = checkpoint(_run_layers, *unit, use_reentrant=False,
                               preserve_rng_state=False)
@@ -136,9 +161,11 @@ def forward(params, cfg, tokens, vision_embeds=None, positions=None,
         aux_total = aux_total + a
     tail = cfg.n_units * n
     for spec, layer in zip(specs[tail:], params.layers[tail:]):
-        x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl)
+        x, a = blocks.forward(layer, cfg, spec, x, positions, impl=impl,
+                              constrain=constrain)
+        x = constrain(x, "resid")
         aux_total = aux_total + a
-    return lm_logits(params, cfg, x), aux_total
+    return lm_logits(params, cfg, x, constrain), aux_total
 
 
 def init_caches(cfg, batch, max_seq, dtype=None, *, device):
@@ -149,21 +176,24 @@ def init_caches(cfg, batch, max_seq, dtype=None, *, device):
 
 
 def prefill(params, cfg, tokens, max_seq, vision_embeds=None, positions=None,
-            impl="kernel"):
+            impl="kernel", constrain=no_constrain):
     """Full-sequence forward + decode-cache capture.
 
     Returns (logits, caches, aux)."""
     x, positions = _stream(params, cfg, tokens, vision_embeds, positions)
+    x = constrain(x, "resid")
     aux_total, caches = 0.0, []
-    for spec, layer in zip(cfg.layer_specs, params.layers):
+    for i, (spec, layer) in enumerate(zip(cfg.layer_specs, params.layers)):
         x, c, a = blocks.prefill(layer, cfg, spec, x, positions, max_seq,
-                                 impl=impl)
+                                 impl=impl, constrain=constrain)
+        if _ends_unit(cfg, i):
+            x = constrain(x, "resid")
         aux_total += a
         caches.append(c)
-    return lm_logits(params, cfg, x), caches, aux_total
+    return lm_logits(params, cfg, x, constrain), caches, aux_total
 
 
-def decode_step(params, cfg, tokens, pos, caches):
+def decode_step(params, cfg, tokens, pos, caches, constrain=no_constrain):
     """One decode step.
 
     tokens: (B,) integers (or (B,K) for multi-codebook); pos: the absolute
@@ -173,8 +203,13 @@ def decode_step(params, cfg, tokens, pos, caches):
         x = embed_tokens(params, cfg, tokens[:, :, None])    # (B,1,d)
     else:
         x = embed_tokens(params, cfg, tokens[:, None])
+    x = constrain(x, "resid")
     new_caches = []
-    for spec, layer, cache in zip(cfg.layer_specs, params.layers, caches):
-        x, c = blocks.decode(layer, cfg, spec, x, pos, cache)
+    for i, (spec, layer, cache) in enumerate(zip(cfg.layer_specs,
+                                                 params.layers, caches)):
+        x, c = blocks.decode(layer, cfg, spec, x, pos, cache,
+                             constrain=constrain)
+        if _ends_unit(cfg, i):
+            x = constrain(x, "resid")
         new_caches.append(c)
-    return lm_logits(params, cfg, x)[:, 0], new_caches
+    return lm_logits(params, cfg, x, constrain)[:, 0], new_caches

@@ -7,6 +7,10 @@ The leaves are the port's state in a fixed order (``leaves``): the
 parameters, the optimiser step, then ``m`` and ``v``, each in the
 parameters' order.  bfloat16 leaves are stored as their int16 bits and
 read back bit for bit, as ``interop`` carries them.
+
+A sharded state (DTensor leaves) is saved whole: every rank gathers each
+leaf (``save`` is collective then) and rank 0 writes, so the files are
+those of an unsharded run and restore into either layout.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def leaves(state):
@@ -28,6 +33,8 @@ def leaves(state):
 
 
 def _to_numpy(x):
+    if hasattr(x, "full_tensor"):          # a DTensor: gathered whole
+        x = x.full_tensor()
     x = x.detach().cpu()
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy()
@@ -36,9 +43,11 @@ def _to_numpy(x):
 
 def save(path, state, step: int = 0, extra: dict | None = None):
     path = Path(path)
-    path.mkdir(parents=True, exist_ok=True)
     items = leaves(state)
     arrays = {f"leaf_{i}": _to_numpy(x) for i, (_, x) in enumerate(items)}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    path.mkdir(parents=True, exist_ok=True)
     np.savez(path / "arrays.npz", **arrays)
     manifest = {
         "step": step,

@@ -41,10 +41,11 @@ class OptState(NamedTuple):
 
 
 def init(params: Mapping[str, torch.Tensor]) -> OptState:
-    """Zero moments, float32, on each parameter's device."""
+    """Zero moments, float32, each laid out as its parameter (on its
+    device; a DTensor parameter's moments are sharded as it is)."""
     dev = next(iter(params.values())).device
-    zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32,
+                                         requires_grad=False)
                      for k, p in params.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=zeros(), v=zeros())

@@ -109,3 +109,35 @@ def train_state(cfg, jstate):
     return interop.train_state_from_numpy(
         cfg, {"params": tree["params"], "opt": tuple(tree["opt"])},
         device=CPU)
+
+
+def per_layer(cfg, tree, is_leaf=None):
+    """{name: (leaf, stacked)} of a JAX params- or caches-shaped pytree
+    under the port's per-layer names: ``layers.<i>.<keys>`` for layer i
+    (unit ``i // pattern_len``'s position ``i % pattern_len``, whose
+    leaves are stacked over the units, or a tail block), and the
+    top-level names (``embed``, ``final_norm``, ``lm_head``) as they
+    are."""
+    import jax
+
+    def flat(sub):
+        out = {}
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+                sub, is_leaf=is_leaf)[0]:
+            keys = [str(getattr(k, "key", getattr(k, "idx", "")))
+                    for k in path]
+            out[".".join(keys)] = leaf
+        return out
+
+    named = {}
+    for i in range(cfg.n_layers):
+        u, pos = divmod(i, cfg.pattern_len)
+        stacked = u < cfg.n_units
+        sub = tree["units"][pos] if stacked else \
+            tree["tail"][i - cfg.n_units * cfg.pattern_len]
+        for k, leaf in flat(sub).items():
+            named[f"layers.{i}.{k}"] = (leaf, stacked)
+    for k in ("embed", "final_norm", "lm_head"):
+        if k in tree:
+            named[k] = (tree[k], False)
+    return named

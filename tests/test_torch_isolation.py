@@ -40,16 +40,41 @@ def test_importing_every_module_loads_no_jax():
     n_modules = int(out.stdout.split()[0])
     # the solver with its baselines and sharded backends, the models (MoE
     # included), serving with its governor, telemetry, the load generator
-    # and the launcher, and the training path: data, training, the steps
-    # and the training launcher
-    assert n_modules >= 80
+    # and the launcher, the training path (data, training, the steps and
+    # the training launcher), and the mesh: the sharding rules, the
+    # production mesh, the cost counter, the roofline and the dry run
+    assert n_modules >= 85
     for name in ("models.moe", "telemetry.bus", "telemetry.sinks",
                  "serving.governor", "loadgen.traces", "loadgen.driver",
                  "launch.serve", "core.baselines", "distributed.solver_mesh",
                  "distributed.multihost", "data.pipeline",
                  "training.losses", "training.optim", "training.checkpoint",
-                 "training.loop", "launch.steps", "launch.train"):
+                 "training.loop", "launch.steps", "launch.train",
+                 "distributed.sharding", "launch.mesh", "launch.hlo_cost",
+                 "launch.roofline", "launch.dryrun"):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The JAX package's modules, less the port's own additions, are the
+    port's: nothing is left to port."""
+    jax_pkg = ROOT / "src" / "repro"
+    want = {p.relative_to(jax_pkg) for p in jax_pkg.rglob("*.py")}
+    have = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    assert sorted(map(str, want - have)) == []
+
+
+def test_importing_the_mesh_modules_starts_no_process_group():
+    code = (
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import dryrun, mesh, roofline, hlo_cost\n"
+        "from repro_torch.distributed import sharding\n"
+        "from repro_torch.launch import train\n"
+        "print(dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"]
 
 
 def _imported_modules(path):
@@ -113,6 +138,10 @@ def test_no_card_means_no_silent_cpu_fallback():
         loop.train(mcfg, steps=1, seq_len=8, global_batch=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "recurrentgemma-2b", "--tiny", "--steps", "1"])
+    # a mesh too: before any rank starts
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "recurrentgemma-2b", "--tiny", "--steps", "1",
+                    "--data-axis", "2", "--model-axis", "2"])
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -382,12 +382,56 @@ def test_launcher_needs_a_card():
                              "--steps", "1"])
 
 
+def _launch(*flags):
+    """``python -m repro_torch.launch.train`` on the tiny internlm2, on
+    the CPU, one intra-op thread a process; its final loss."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "internlm2-1.8b", "--tiny", "--steps", "2", "--seq-len", "16",
+         "--batch", "4", "--device", "cpu", *flags],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    last = out.stdout.splitlines()[-1]
+    assert last.startswith("final loss: ")
+    return float(last.split(": ")[1])
+
+
+@pytest.fixture(scope="module")
+def single_rank_loss():
+    return _launch()
+
+
 @pytest.mark.parametrize("flags", [["--data-axis", "2"],
                                    ["--model-axis", "2"], ["--dry-run"]])
-def test_launcher_unported_options_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_launcher.main(["--arch", "internlm2-1.8b", "--tiny",
-                             "--device", "cpu", *flags])
+def test_launcher_unported_options_raise(flags, tmp_path, monkeypatch,
+                                         capsys, request):
+    """The options the launcher refused until the mesh was ported now
+    run: a data or model axis of 2 trains on two gloo ranks to the
+    single process's loss (bf16 tiny config: within 1e-2 relative), and
+    ``--dry-run`` lays the ``train_4k`` step out on the production mesh
+    (the tiny config here, its record written to the port's directory)."""
+    if flags == ["--dry-run"]:
+        from repro_torch.launch import dryrun
+        monkeypatch.setattr(dryrun, "get_config", configs.get_tiny_config)
+        monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+        assert train_launcher.main(["--arch", "internlm2-1.8b", "--tiny",
+                                    "--device", "cpu", *flags]) == 0
+        rec = json.loads((tmp_path / "internlm2-1.8b.train_4k.16x16.json")
+                         .read_text())
+        assert rec["ok"] and rec["n_chips"] == 256
+        assert "[ ok ] internlm2-1.8b.train_4k.16x16" in \
+            capsys.readouterr().out
+        return
+    assert _launch(*flags) == pytest.approx(
+        request.getfixturevalue("single_rank_loss"), rel=1e-2)
+
+
+def test_launcher_trains_on_a_2x2_mesh(single_rank_loss):
+    assert _launch("--data-axis", "2", "--model-axis", "2") == \
+        pytest.approx(single_rank_loss, rel=1e-2)
 
 
 # ----------------------------------------------------------------- guard
