@@ -112,8 +112,9 @@ each with its timings:
                 shard on the card) and over (cuda:0, cuda:0), held to
                 ``backend="chunked"``: equal
                 splits and iteration counts, Γ within rtol 1e-5; each
-                shard's era_step launches equal its own lanes' GD
-                iterations (each shard stops on its own); the sorted lane
+                shard's era_step launches (less a capture's warm-up)
+                equal its own lanes' GD iterations (each shard stops on
+                its own); the sorted lane
                 placement twice, its splits, iterations and allocations
                 bitwise the 'none' placement's and Γ within rtol 1e-5
                 (bitwise where a lane keeps its position in its shard)
@@ -186,6 +187,35 @@ each with its timings:
                 ``dryrun``, 0 launches); first ``launch.hlo_cost``'s count
                 of one sharded product under this torch's DTensor: one
                 rank's 1/256 of the global FLOPs
+
+ 22. graphed sweep  the compiled sweep (``SolverSpec.compiled_sweep``,
+                ``core/sweep_graph``; phases 5–17 already run it as the
+                default): (a) phase 6's sweep (two paper-width cells,
+                yolov2, chunked, 400 steps) graphed and eager on the same
+                inputs: equal splits and iteration counts, Γ and every
+                allocation leaf bitwise (else within rtol 1e-5, the largest
+                difference printed), equal era_step launches (the first
+                run's less its capture warm-ups'); ms per GD
+                step both ways, replays, host reads of the done flag, and
+                what this torch exposes of conditional-node capture;
+                (b) the cells' channels drawn again through the cached
+                runner (no capture), equal to their eager sweep, each
+                lane's Γ landscape moved by more than the bar; (c) one
+                cell, ``ligd.solve`` with ``compiled_sweep=False`` against
+                the default; (d) the autograd and adaptive bodies at
+                phase 5's config (20 steps), graphed against eager (the
+                autograd eager loop also against itself), and the graph
+                pool's reserved bytes; (e) phase 6's cluster on the
+                default: bootstrap and an admission round (wall s, ms per
+                step), a second round under the profiler (the card's busy
+                share, era_step's device ms a step and the rest's, the top
+                other kernels, pass0's records beside era_step's count);
+                after (a), a graphed sweep of 16 steps a layer that
+                captures, under the profiler: pass0's records must equal
+                era_step's count, warm-up and replays included (a whole
+                round's ~4e5 records can overflow the profiler's
+                buffers); the graph pool is also logged after phases 6,
+                12, 13, 14 and 17
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -276,6 +306,19 @@ SHARD_TOL = 1e-3
 # phase 15: the QoE thresholds of benchmarks/fig12_13_vs_baselines.py, as
 # multiples of ERA's mean latency at a loose (1 s) budget
 FIG12_MULTIPLES = (0.6, 0.9, 1.2)
+# phase 22: where a graphed result is not bitwise the eager loop's, it is
+# held at the solver's bar (ROADMAP.md): Γ relative, each allocation leaf
+# against its max |value|
+GRAPH_RTOL = 1e-5
+# phase 22 (d)'s GD budget for the autograd and adaptive bodies
+BODY_STEPS = 20
+# phase 22's profiled count check: a budget of two replays a layer, so the
+# window holds ~4e4 device records (a whole admission round's ~4.2e5 can
+# overflow the profiler's buffers: the tail of the round goes missing)
+COUNT_STEPS = 16
+# era_step's five launches (colsum twice), by ``short_name``
+ERA_KERNELS = ("pass0_kernel", "colsum_kernel", "tail_kernel",
+               "pass1_kernel")
 # phase 17: seconds a child process may take
 CHILD_TIMEOUT_S = 300
 # phase 18: the seven families trained at their tiny float32 configs, one
@@ -592,14 +635,17 @@ def phase_sharded(dev, by_path):
     t0 = time.perf_counter()
     sh1 = ligd.solve_batch(scns, prof, q, spec=sharded.replace(mesh=one))
     t_sh1 = time.perf_counter() - t0
-    # each shard's launches, counted around its own sweep
+    # each shard's launches, counted around its own sweep, less those of a
+    # capture's warm-up (a shard's first sweep at its shape captures)
     shard_launches = []
     sweep = ligd._sweep_core
 
     def counted(*a, **kw):
         n0 = era_step_fused.launches
+        w0 = ligd.SWEEP_STATS["warmup_launches"]
         out = sweep(*a, **kw)
-        shard_launches.append(era_step_fused.launches - n0)
+        shard_launches.append(era_step_fused.launches - n0 - (
+            ligd.SWEEP_STATS["warmup_launches"] - w0))
         return out
 
     t0 = time.perf_counter()
@@ -1527,6 +1573,310 @@ def phase_dryrun(dev, by_path, kernel_fns):
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+def _sweep_parts(x):
+    """(iterations, Γ landscape, allocation, splits) of a ``GDResult``
+    (splits: each lane's argmin over the layers) or a ``LiGDOutcome``."""
+    if hasattr(x, "iters_by_layer"):
+        return (torch.as_tensor(x.iters_by_layer),
+                torch.as_tensor(x.gamma_by_layer), x.alloc,
+                torch.as_tensor(x.s))
+    return x.iters.cpu(), x.gamma.cpu(), x.alloc, x.gamma.argmin(-1).cpu()
+
+
+def graphed_vs_eager(got, want, what):
+    """Equal iteration counts and splits; Γ and every allocation leaf
+    bitwise, else within ``GRAPH_RTOL``.  Returns (bitwise, Γ's largest
+    relative difference, the largest leaf difference over its max)."""
+    (gi, gg, ga, gs), (wi, wg, wa, ws) = _sweep_parts(got), _sweep_parts(want)
+    if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
+        raise AssertionError(f"{what}: iteration counts or splits differ")
+    g_rel = float(((gg.double() - wg.double()).abs()
+                   / wg.double().abs()).max())
+    a_rel = max(scaled_err(x, y) for x, y in zip(ga, wa))
+    bitwise = torch.equal(gg, wg) and all(torch.equal(x, y)
+                                          for x, y in zip(ga, wa))
+    if not bitwise and not (g_rel <= GRAPH_RTOL and a_rel <= GRAPH_RTOL):
+        raise AssertionError(f"{what}: Γ {g_rel:.3e} and leaves {a_rel:.3e}"
+                             f" apart, bar {GRAPH_RTOL}")
+    return bitwise, g_rel, a_rel
+
+
+def log_graph_pool(dev, after):
+    """The compiled sweep's cached runners and graph pool, beside all the
+    card's allocator holds, after the phase ``after``."""
+    from repro_torch.core import sweep_graph
+    log("graph_pool", after=after, runners=len(sweep_graph.cached_keys()),
+        pool_reserved_bytes=sweep_graph.pool_reserved_bytes(dev),
+        card_reserved_bytes=torch.cuda.memory_reserved(dev))
+
+
+def phase_graphed_sweep(dev, by_path):
+    """Phase 22: the compiled sweep on the card (module docs)."""
+    from repro_torch.core import era, ligd, network, profiles, sweep_graph
+    from repro_torch.kernels.era_step.kernel import era_step_fused
+    from repro_torch.kernels.noma_rate.kernel import noma_rate
+    from repro_torch.serving.cluster import SplitInferenceCluster
+    t_phase = time.perf_counter()
+    w = era.Weights()
+    # the faithful counterpart of lax.while_loop would be a conditional
+    # WHILE node: what this torch exposes of conditional capture
+    cond_api = [a for a in dir(torch.cuda.CUDAGraph)
+                if "conditional" in a or "capture_to" in a]
+
+    def timed(prep, q, x_init, graphed, **kw):
+        torch.cuda.synchronize()
+        ligd.SWEEP_STATS.update(flag_reads=0, replays=0, captures=0,
+                                warmup_launches=0)
+        n0 = era_step_fused.launches
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = ligd._sweep_core(prep.scn_b, q, x_init, prep.pred_b,
+                                   kw.pop("lr", 0.05), kw.pop("tol", 1e-5),
+                                   kw.pop("max_steps", MAX_STEPS), w,
+                                   prep.prof_b, graphed=graphed, **kw)
+        torch.cuda.synchronize()
+        return dict(out=out, s=time.perf_counter() - t0,
+                    launches=era_step_fused.launches - n0,
+                    **ligd.SWEEP_STATS)
+
+    def per_step(run):
+        return f"{run['s'] / max(run['launches'], 1) * 1e3:.4f}"
+
+    # (a) phase 6's sweep (two paper-width cells, yolov2, chunked, 400
+    # steps), graphed (the first run captures) and eager on the same inputs
+    cfg, scns = paper_cells(network, 2, dev)
+    prof = profiles.get_profile("yolov2", device=dev)
+    q = torch.full((2, cfg.n_users), 0.4, device=dev)
+    chunk = dict(check_every=ligd.DEFAULT_GD_CHUNK)
+    prep = ligd.prepare_batch(scns, prof)
+    x_init = era.uniform_alloc(prep.scn_b)
+    first = timed(prep, q, x_init, True, **chunk)
+    graphed = timed(prep, q, x_init, True, **chunk)
+    eager = timed(prep, q, x_init, False, **chunk)
+    same_a, g_rel_a, a_rel_a = graphed_vs_eager(graphed["out"], eager["out"],
+                                                "(a) graphed sweep")
+    # the first run's capture warm-ups launched era_step too, outside its
+    # replays
+    if not (graphed["launches"] == eager["launches"]
+            == first["launches"] - first["warmup_launches"]
+            and graphed["captures"] == 0):
+        raise AssertionError(f"(a) era_step launches graphed "
+                             f"{graphed['launches']}, eager "
+                             f"{eager['launches']}, first "
+                             f"{first['launches']} with "
+                             f"{first['warmup_launches']} in warm-ups; "
+                             f"captures {graphed['captures']} on the "
+                             f"second run")
+    log("graphed_sweep", part="a", cells=2,
+        shape=f"U{cfg.n_users}xM{cfg.n_subchannels}xN{cfg.n_aps}",
+        profile="yolov2", check_every=chunk["check_every"],
+        max_steps=MAX_STEPS, bitwise=same_a, gamma_rel=f"{g_rel_a:.3e}",
+        leaf_rel=f"{a_rel_a:.3e}", steps=graphed["launches"],
+        era_launches_graphed=graphed["launches"],
+        era_launches_eager=eager["launches"],
+        graphed_first_s=f"{first['s']:.3f}", captures=first["captures"],
+        warmup_launches=first["warmup_launches"],
+        graphed_s=f"{graphed['s']:.3f}", eager_s=f"{eager['s']:.3f}",
+        graphed_ms_per_step=per_step(graphed),
+        eager_ms_per_step=per_step(eager),
+        replays=graphed["replays"], flag_reads_graphed=graphed["flag_reads"],
+        flag_reads_eager=eager["flag_reads"],
+        conditional_node_api=json.dumps(cond_api).replace(" ", ""))
+
+    # the count against the device: a graphed sweep at a budget no runner
+    # has yet (a capture, its warm-up, then replays) under the profiler;
+    # pass0 runs once an era_step launch, so its records are the launches
+    # the device ran, which the count must equal
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        counted = timed(prep, q, x_init, True, max_steps=COUNT_STEPS, **chunk)
+    records = [e for e in trace.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    pass0 = sum(1 for e in records if "pass0_kernel" in e.name())
+    log("graphed_sweep", part="count", max_steps=COUNT_STEPS,
+        captures=counted["captures"], replays=counted["replays"],
+        warmup_launches=counted["warmup_launches"],
+        era_launches=counted["launches"], pass0_records=pass0,
+        device_records=len(records))
+    if not (counted["captures"] and pass0 == counted["launches"]
+            > counted["warmup_launches"] > 0):
+        raise AssertionError(f"(a) a profiled graphed sweep ran pass0 "
+                             f"{pass0} times; era_step's count says "
+                             f"{counted['launches']}, "
+                             f"{counted['warmup_launches']} of them in "
+                             f"{counted['captures']} captures' warm-ups")
+
+    # (b) the cells' channels drawn again (phase 6's observe step) through
+    # the cached runner: no capture, equal to an eager solve of them; each
+    # lane's Γ landscape moved by more than the bar, so stale buffers fail
+    gen = torch.Generator().manual_seed(SEED + 300)
+    scns2 = [network.evolve_scenario(s_, gen, rho=0.5) for s_ in scns]
+    prep2 = ligd.prepare_batch(scns2, prof)
+    x_init2 = era.uniform_alloc(prep2.scn_b)
+    eager2 = timed(prep2, q, x_init2, False, **chunk)
+    moved = ((eager2["out"].gamma.double() - eager["out"].gamma.double()).abs()
+             / eager["out"].gamma.double().abs()).amax(dim=1)
+    if not bool((moved > GRAPH_RTOL).all()):
+        raise AssertionError(f"(b) the redrawn channels moved a lane's Γ "
+                             f"landscape by only {moved.tolist()}")
+    n_runners = len(sweep_graph.cached_keys())
+    graphed2 = timed(prep2, q, x_init2, True, **chunk)
+    same_b, g_rel_b, a_rel_b = graphed_vs_eager(graphed2["out"],
+                                                eager2["out"],
+                                                "(b) second scenario")
+    if graphed2["captures"] or len(sweep_graph.cached_keys()) != n_runners:
+        raise AssertionError("(b) the second scenario did not reuse the "
+                             "cached runner")
+    if graphed2["launches"] != eager2["launches"]:
+        raise AssertionError(f"(b) era_step launches graphed "
+                             f"{graphed2['launches']}, eager "
+                             f"{eager2['launches']}")
+    log("graphed_sweep", part="b", bitwise=same_b,
+        gamma_rel=f"{g_rel_b:.3e}", leaf_rel=f"{a_rel_b:.3e}",
+        landscape_moved_min=f"{float(moved.min()):.3e}",
+        steps=graphed2["launches"], graphed_s=f"{graphed2['s']:.3f}",
+        eager_s=f"{eager2['s']:.3f}", graphed_ms_per_step=per_step(graphed2),
+        eager_ms_per_step=per_step(eager2), replays=graphed2["replays"],
+        flag_reads_graphed=graphed2["flag_reads"], captures=0)
+
+    # (c) one cell through ``ligd.solve``: the eager per-layer loop
+    # (compiled_sweep=False) against the default spec
+    spec = ligd.SolverSpec()
+    t0 = time.perf_counter()
+    one_g = ligd.solve(scns[0], prof, q[0], spec=spec)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_e = ligd.solve(scns[0], prof, q[0],
+                       spec=spec.replace(compiled_sweep=False))
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t0
+    same_c, g_rel_c, a_rel_c = graphed_vs_eager(one_g, one_e,
+                                                "(c) one cell, solve")
+    if not torch.equal(one_g.terms.gamma, one_e.terms.gamma) and not (
+            gamma_rel([one_g], [one_e]) <= GRAPH_RTOL):
+        raise AssertionError("(c) the final Γ differs beyond the bar")
+    log("graphed_sweep", part="c", backend=spec.backend,
+        max_steps=spec.max_steps, bitwise=same_c, gamma_rel=f"{g_rel_c:.3e}",
+        leaf_rel=f"{a_rel_c:.3e}", gd_iters=one_g.total_iters,
+        compiled_s=f"{t_g:.3f}", eager_loop_s=f"{t_e:.3f}")
+
+    # (d) the other bodies at phase 5's small config, graphed against eager
+    small = network.small_config(n_users=12, n_subchannels=6)
+    sscns = [network.make_scenario(torch.Generator().manual_seed(50 + i),
+                                   small, dev) for i in range(4)]
+    sprep = ligd.prepare_batch(sscns, profiles.get_profile("nin",
+                                                           device=dev))
+    sq = torch.full((4, small.n_users), 0.4, device=dev)
+    sx = era.uniform_alloc(sprep.scn_b)
+    bodies = {}
+    for name, kw in (("autograd", dict(step_impl="autograd")),
+                     ("adaptive", dict(adaptive=True))):
+        kw.update(tol=0.0, max_steps=BODY_STEPS)
+        g_run = timed(sprep, sq, sx, True, **dict(kw))
+        e_run = timed(sprep, sq, sx, False, **dict(kw))
+        same, g_rel, a_rel = graphed_vs_eager(g_run["out"], e_run["out"],
+                                              f"(d) {name}")
+        if g_run["launches"] - g_run["warmup_launches"] != e_run["launches"]:
+            raise AssertionError(f"(d) {name}: era_step launches differ")
+        # one step a replay (check_every 1), and as many steps eagerly
+        steps = g_run["replays"]
+        bodies[name] = dict(bitwise=same, gamma_rel=float(f"{g_rel:.3e}"),
+                            leaf_rel=float(f"{a_rel:.3e}"), steps=steps,
+                            graphed_ms_per_step=round(
+                                g_run["s"] / steps * 1e3, 4),
+                            eager_ms_per_step=round(
+                                e_run["s"] / steps * 1e3, 4))
+        if name == "autograd":
+            # the eager loop against itself: the backward of autograd's
+            # gathers is a scatter-add, summed with atomics in a
+            # run-dependent order
+            again = timed(sprep, sq, sx, False, **dict(kw))
+            same_e, g_rel_e, _ = graphed_vs_eager(
+                again["out"], e_run["out"], "(d) autograd, eager twice")
+            bodies[name].update(eager_twice_bitwise=same_e,
+                                eager_twice_gamma_rel=float(f"{g_rel_e:.3e}"))
+    torch.cuda.synchronize()
+    log("graphed_sweep", part="d", cells=4, users=small.n_users,
+        channels=small.n_subchannels, max_steps=BODY_STEPS,
+        bodies=json.dumps(bodies).replace(" ", ""),
+        pool_reserved_bytes=sweep_graph.pool_reserved_bytes(dev),
+        runners=len(sweep_graph.cached_keys()))
+
+    # (e) the main path on the default: bootstrap and an admission round of
+    # phase 6's cluster, then a second round under the profiler
+    spec = ligd.SolverSpec(backend="chunked", per_user_split=True,
+                           max_steps=MAX_STEPS)
+    cluster = SplitInferenceCluster(None, None, prof, spec=spec, device=dev)
+    a_id, b_id = (cluster.add_cell(s_) for s_ in scns)
+    era_step_fused.launches = 0
+    noma_rate.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cluster.start(threaded=False)
+    torch.cuda.synchronize()
+    t_boot = time.perf_counter() - t0
+    boot_steps = era_step_fused.launches
+
+    def admission_round(k):
+        """Arrivals on cell a, a drift of cell b, one round: (wall s, GD
+        steps)."""
+        for user, q_s in ((3 + k, 0.25), (17 + k, 0.3), (400 + k, 0.2)):
+            cluster.submit(a_id, user=user, q_s=q_s)
+        cluster.observe(b_id, network.evolve_scenario(
+            scns[1], torch.Generator().manual_seed(SEED + 200 + k), rho=0.5))
+        n0 = era_step_fused.launches
+        t0 = time.perf_counter()
+        if cluster.step() is None:
+            raise AssertionError(f"(e) admission round {k} did not run")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, era_step_fused.launches - n0
+
+    t_round, round_steps = admission_round(0)
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t_prof, prof_steps = admission_round(1)
+    by_path["era_step"]["graphed_sweep"] = era_step_fused.launches
+    by_path["noma_rate"]["graphed_sweep"] = noma_rate.launches
+    cluster.stop()
+    for name in ("era_step", "noma_rate"):
+        if by_path[name]["graphed_sweep"] <= 0:
+            raise AssertionError(f"(e) {name} was not launched")
+    # the raw device records (building the profiler's event tree takes
+    # minutes for a round's records); pass0 runs once an era_step launch
+    dev_events = [e for e in trace.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+    busy_s = sum(e.duration_ns() for e in dev_events) / 1e9
+    # short of the count when the round's records overflow the profiler's
+    # buffers (the count is held to the device on (a)'s smaller window)
+    pass0 = sum(1 for e in dev_events if "pass0_kernel" in e.name())
+    by_kernel = {}
+    for e in dev_events:
+        k = short_name(e.name())
+        by_kernel[k] = by_kernel.get(k, 0) + e.duration_ns() / 1e9
+    era_s = sum(by_kernel.get(k, 0.0) for k in ERA_KERNELS)
+    top = sorted(((k, v) for k, v in by_kernel.items()
+                  if k not in ERA_KERNELS), key=lambda kv: -kv[1])[:6]
+    log("graphed_sweep", part="e", bootstrap_s=f"{t_boot:.3f}",
+        bootstrap_steps=boot_steps,
+        bootstrap_ms_per_step=f"{t_boot / boot_steps * 1e3:.4f}",
+        round_s=f"{t_round:.3f}", round_steps=round_steps,
+        round_ms_per_step=f"{t_round / max(round_steps, 1) * 1e3:.4f}",
+        profiled_round_s=f"{t_prof:.3f}", profiled_round_steps=prof_steps,
+        device_busy_s=f"{busy_s:.3f}",
+        device_busy_share=f"{busy_s / t_prof:.3f}",
+        profiled_pass0_records=pass0, device_records=len(dev_events),
+        era_step_device_s=f"{era_s:.3f}",
+        era_step_ms_per_step=f"{era_s / max(prof_steps, 1) * 1e3:.4f}",
+        other_device_ms_per_step=(
+            f"{(busy_s - era_s) / max(prof_steps, 1) * 1e3:.4f}"),
+        top_other_kernels_s=json.dumps([[k, round(v, 3)] for k, v in top]
+                                       ).replace(" ", ""),
+        launches=json.dumps({n: by_path[n]["graphed_sweep"]
+                             for n in ("era_step", "noma_rate")}
+                            ).replace(" ", ""),
+        pool_reserved_bytes=sweep_graph.pool_reserved_bytes(dev),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is available")
@@ -1774,6 +2124,8 @@ def main():
         round_ms_per_step=f"{t_round / max(round_launches, 1) * 1e3:.3f}",
         versions=f"{v_boot}->{cluster.schedule_version}",
         launches=json.dumps(launches).replace(" ", ""))
+
+    log_graph_pool(dev, "phase 6")
 
     # ---- 7. flash_attention --------------------------------------------
     def attn_inputs(b, s_len, h, kh, d, dtype, seed):
@@ -2637,6 +2989,8 @@ def main():
     del model, mcluster, moe_calls
     torch.cuda.empty_cache()
 
+    log_graph_pool(dev, "phase 12")
+
     # ---- 13. the load generator -------------------------------------------
     # ``run_load`` drives a solver-only cluster of 8 cells x 16 users on the
     # fake clock: a flash crowd with and without the governor (the same
@@ -2711,6 +3065,8 @@ def main():
                              ("era_step", "noma_rate")}).replace(" ", ""),
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
+    log_graph_pool(dev, "phase 13")
+
     # ---- 14. the launcher ---------------------------------------------------
     # ``python -m repro_torch.launch.serve`` in process, on the card (no
     # --device): the async cluster with the governor, churn and a JSONL
@@ -2769,10 +3125,17 @@ def main():
                             ).replace(" ", ""),
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
+    log_graph_pool(dev, "phase 14")
+
     # ---- 15–17. the baselines, the sharded and multihost backends --------
     phase_baselines(dev, by_path)
     sharded = phase_sharded(dev, by_path)
     phase_multihost(dev, by_path, sharded)
+    # the graphs' pool after the solver phases, freed for training
+    from repro_torch.core import sweep_graph
+    log_graph_pool(dev, "phases 5-17")
+    sweep_graph.clear_cache()
+    torch.cuda.empty_cache()
 
     # ---- 18–19. the training path ------------------------------------------
     # it runs the plain paths, which the kernels' counts show: 0 launches
@@ -2786,6 +3149,9 @@ def main():
     # the plain paths again (0 launches); the dry run runs on ``meta``
     phase_mesh(dev, by_path, train_fns)
     phase_dryrun(dev, by_path, train_fns)
+
+    # ---- 22. the compiled sweep (the GD chunk as CUDA graphs) -------------
+    phase_graphed_sweep(dev, by_path)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -22,6 +22,18 @@ while-loop.  The warm-start predecessor graph depends only on the profile,
 so ``_sweep_core`` is a Python loop over the F+1 layers with the fused
 step's static operands (``build_aux``) built once per sweep.
 
+Compiled sweep (``SolverSpec.compiled_sweep``, the default): the JAX
+package compiles the sweep into one XLA program; the port captures
+``check_every`` select-frozen GD steps as a CUDA graph and replays it until
+the device's done flag says every lane has stopped (``core/sweep_graph``;
+on the CPU the same steps run eagerly on the runner's buffers).  A frozen
+lane's carry is selected away, so results equal the eager loop's.
+``solve(compiled_sweep=False)`` runs that eager loop, dispatched from the
+host step by step: the counterpart of the JAX package's per-layer
+reference loop.  How a solve runs is one ``SolverSpec``; the legacy kwarg
+sprawl (``compiled_sweep``/``gd_chunk``/``mesh`` and the numeric knobs)
+still works through the JAX package's deprecation shim.
+
 ``SolverSpec.backend``:
   ``reference`` — reads the device-side "all lanes done" flag every step;
   ``chunked``   — reads it every ``gd_chunk`` steps (one host sync per
@@ -44,6 +56,8 @@ contribution, then re-polish the allocation with the mixed split vector.
 """
 from __future__ import annotations
 
+import contextlib
+import warnings
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
 from typing import List, NamedTuple, Optional
@@ -51,11 +65,14 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import network, noma, profiles, qoe
-from repro_torch.core.era import (Allocation, Terms, Weights, clip_alloc,
-                                  delay_terms, energy, lam, round_beta,
-                                  uniform_alloc, utility)
-from repro_torch.core.network import env_col, tree_map
+from repro_torch.core import network, noma, profiles, qoe, sweep_graph
+from repro_torch.core.era import (Allocation, Terms, Weights, delay_terms,
+                                  energy, lam, round_beta, uniform_alloc,
+                                  utility)
+# SWEEP_STATS is read here by the solver's callers
+from repro_torch.core.gd_loop import (SWEEP_STATS, GDResult, active,
+                                      advance, gd_step, init_carry, tally)
+from repro_torch.core.network import tree_map
 
 _BACKENDS = ("reference", "chunked", "sharded", "multihost")
 _CELL_SHARDED = ("sharded", "multihost")
@@ -65,7 +82,6 @@ _PLACEMENTS = ("none", "sorted")
 
 # gd_chunk a `backend="chunked"` spec defaults to when none is given
 DEFAULT_GD_CHUNK = 8
-
 
 @dataclass(frozen=True)
 class SolverSpec:
@@ -85,6 +101,10 @@ class SolverSpec:
       warm            cross-ROUND warm start, consumed by the serving layer.
       per_user_split  ERA+ per-user split pick + polish (beyond paper).
       adaptive        backtracking step-size control (beyond paper).
+      compiled_sweep  True (default): the GD chunk runs as a captured CUDA
+                      graph on the card (``core/sweep_graph``); False:
+                      the eager per-layer loop, 'reference' backend and
+                      ``solve`` only.
       bucket          partial-round padding policy: 'pow2' | 'exact' |
                       'full'.
       mesh            a ``solver_mesh.cells_mesh`` for 'sharded'/
@@ -109,6 +129,7 @@ class SolverSpec:
     warm: bool = True
     per_user_split: bool = False
     adaptive: bool = False
+    compiled_sweep: bool = True
     bucket: str = "pow2"
     mesh: Optional[tuple] = None           # solver_mesh.cells_mesh
     step_impl: str = "fused"
@@ -131,6 +152,9 @@ class SolverSpec:
         if self.mesh is not None and self.backend not in _CELL_SHARDED:
             raise ValueError("mesh= only applies to backend='sharded' "
                              "or 'multihost'")
+        if not self.compiled_sweep and self.backend != "reference":
+            raise ValueError("compiled_sweep=False (per-layer reference "
+                             "loop) only composes with backend='reference'")
         if self.step_impl not in _STEP_IMPLS:
             raise ValueError(f"step_impl must be one of {_STEP_IMPLS}, "
                              f"got {self.step_impl!r}")
@@ -176,10 +200,55 @@ class SolverSpec:
         return solver_mesh.cells_mesh()
 
 
-class GDResult(NamedTuple):
-    alloc: Allocation
-    gamma: torch.Tensor
-    iters: torch.Tensor
+class _Unset:
+    def __repr__(self):
+        return "<unset>"
+
+
+_UNSET = _Unset()
+
+# legacy kwargs that warn (the sprawl SolverSpec replaces); plain numeric
+# knobs (lr/tol/max_steps/...) fold into the spec silently
+_SPEC_DEPRECATED = ("compiled_sweep", "gd_chunk", "mesh")
+# passing a deprecated kwarg at its no-op value is vacuous — fold it
+# without warning (and without conflicting with an explicit spec=)
+_VACUOUS = {"compiled_sweep": True, "gd_chunk": 0, "mesh": None}
+
+
+def spec_from_kwargs(**kw) -> SolverSpec:
+    """Map the legacy kwarg sprawl onto a ``SolverSpec``: ``mesh`` selects
+    the sharded backend, else ``gd_chunk>0`` selects chunked, else
+    reference.  Shared by the ``solve``/``solve_batch`` deprecation shims
+    and the serving constructors' legacy signatures."""
+    gd_chunk = int(kw.pop("gd_chunk", 0) or 0)
+    mesh = kw.pop("mesh", None)
+    if mesh is not None:
+        kw.update(backend="sharded", mesh=mesh, gd_chunk=gd_chunk)
+    elif gd_chunk:
+        kw.update(backend="chunked", gd_chunk=gd_chunk)
+    return SolverSpec(**kw)
+
+
+def _resolve_spec(spec: Optional[SolverSpec], where: str,
+                  **legacy) -> SolverSpec:
+    """Either take the explicit ``spec=`` or build one from legacy kwargs.
+    Mixing the two is rejected; deprecated structural kwargs
+    (``compiled_sweep``/``gd_chunk``/``mesh``) warn."""
+    passed = {k: v for k, v in legacy.items()
+              if v is not _UNSET and _VACUOUS.get(k, _UNSET) != v}
+    if spec is not None:
+        if passed:
+            raise ValueError(
+                f"{where}: pass either spec= or the legacy kwargs "
+                f"{sorted(passed)}, not both")
+        return spec
+    dep = sorted(k for k in passed if k in _SPEC_DEPRECATED)
+    if dep:
+        warnings.warn(
+            f"{where}({', '.join(dep)}=...) is deprecated; build a "
+            "SolverSpec and pass spec= (README.md has the migration "
+            "table)", DeprecationWarning, stacklevel=3)
+    return spec_from_kwargs(**passed)
 
 
 class LiGDOutcome(NamedTuple):
@@ -191,27 +260,11 @@ class LiGDOutcome(NamedTuple):
     total_iters: int
 
 
-def _scales(env):
-    """Per-variable preconditioner ranges from the (batched) ``CellEnv``."""
-    return Allocation(
-        beta_up=1.0,
-        beta_dn=1.0,
-        p=env.p_max_w - env.p_min_w,
-        p_ap=env.ap_p_max_w - env.ap_p_min_w,
-        r=env.r_max - env.r_min,
-    )
-
-
-def _select(cond, new, old):
-    """Per-lane select over an Allocation (or tensor) with leading B."""
-    return tree_map(lambda n, o: torch.where(env_col(cond, n), n, o),
-                    new, old)
-
-
 def _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
              adaptive=False, step_impl="fused", step_aux=None,
-             check_every=1) -> GDResult:
-    """Projected, preconditioned GD on Γ over B lanes at once.
+             check_every=1, graphed=True) -> GDResult:
+    """Projected, preconditioned GD on Γ over B lanes at once
+    (``gd_loop.gd_step``).
 
     ``scn``/``s_vec``/``q``/``x0`` carry the leading cell axis B.  Each
     lane steps until its own stop test fires or it reaches ``max_steps``;
@@ -220,91 +273,34 @@ def _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
     those of an isolated solve.  The host reads the "all lanes stopped"
     flag every ``check_every`` steps.
 
-    ``adaptive=True``: backtracking step control — shrink 0.5× on a
-    worsening step (and reject it), grow 1.1× on an improving one.
-    ``step_impl='fused'`` takes Γ and ∂Γ from the era_step kernel (its
-    plain version on the CPU); the final Γ of the solve and the adaptive
-    path's extra forward stay on ``utility``."""
-
-    def loss(alloc):
-        return utility(scn, prof, s_vec, alloc, q, w).gamma
-
-    if step_impl == "fused":
-        from repro_torch.kernels.era_step import ops as _era_step_ops
-        aux = (step_aux if step_aux is not None
-               else _era_step_ops.build_aux(scn))
-        consts = _era_step_ops.layer_operands(scn, prof, s_vec, q, w)
-
-        def grad_fn(alloc):
-            return _era_step_ops.era_step_value_and_grad(
-                scn, prof, s_vec, q, alloc, w, aux=aux, consts=consts)
-    else:
-        def grad_fn(alloc):
-            with torch.enable_grad():
-                leaves = [x.detach().requires_grad_(True) for x in alloc]
-                val = loss(Allocation(*leaves))
-                grads = torch.autograd.grad(val.sum(), leaves)
-            return val.detach(), Allocation(*grads)
-
-    scales = _scales(scn.env)
-    n_lanes = x0.p.shape[0]
-    dev = x0.p.device
-
-    def body(alloc, prev_val, cur_lr):
-        val, g = grad_fn(alloc)
-        # guard against inf gradients from degenerate (near-zero-rate)
-        # allocations: 1/R² terms in eq. (34) blow up as R -> 0
-        g = Allocation(*(torch.where(torch.isfinite(x), x,
-                                     torch.zeros_like(x)) for x in g))
-        sq = 0.0
-        for x in g:
-            sq = sq + torch.sum(x ** 2, dim=tuple(range(1, x.dim())))
-        gnorm = torch.sqrt(sq)
-        step = Allocation(*(
-            env_col(cur_lr, gg) * env_col(sc, gg) * gg
-            / env_col(gnorm + 1e-12, gg)
-            for gg, sc in zip(g, scales)))
-        new = clip_alloc(scn, Allocation(*(a - d for a, d in
-                                           zip(alloc, step))))
-        if adaptive:
-            new_val = loss(new)
-            improved = new_val < val
-            new = _select(improved, new, alloc)
-            new_val = torch.where(improved, new_val, val)
-            cur_lr = torch.where(improved, cur_lr * 1.1, cur_lr * 0.5)
-            done = ((torch.abs(new_val - val) < tol * (1.0 + torch.abs(val)))
-                    | (gnorm < tol) | (cur_lr < lr * 1e-3))
-            return new, new_val, done, cur_lr
-        # plain GD: the |ΔΓ| stop compares against the previous iterate's
-        # value instead of paying a third Γ evaluation per step
-        done = ((torch.abs(val - prev_val) < tol * (1.0 + torch.abs(val)))
-                | (gnorm < tol))
-        return new, val, done, cur_lr
-
-    alloc = x0
-    prev_val = (loss(x0) if adaptive else
-                torch.full((n_lanes,), float("inf"), device=dev))
-    k = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
-    done = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
-    cur_lr = torch.full((n_lanes,), lr, dtype=torch.float32, device=dev)
+    ``graphed`` (the compiled sweep): the steps run through
+    ``sweep_graph``'s cached runner, ``check_every`` of them a CUDA graph
+    replay on the card; False: the loop below, every step dispatched from
+    the host.  Both return the same iterates, counts and Γ."""
+    if graphed:
+        with sweep_graph.staged(scn, prof, q, w, lr=lr, tol=tol,
+                                max_steps=max_steps, adaptive=adaptive,
+                                step_impl=step_impl, check_every=check_every,
+                                aux=step_aux) as runner:
+            return runner.run(s_vec, x0)
+    loss, body = gd_step(scn, s_vec, q, lr, tol, w, prof, adaptive=adaptive,
+                         step_impl=step_impl, step_aux=step_aux)
+    c = init_carry(loss, x0, lr, adaptive)
     for it in range(max_steps):
-        active = ~done & (k < max_steps)
-        if it % check_every == 0 and not bool(active.any()):
-            break
-        new, val, new_done, new_lr = body(alloc, prev_val, cur_lr)
-        alloc = _select(active, new, alloc)
-        prev_val = torch.where(active, val, prev_val)
-        done = torch.where(active, new_done, done)
-        cur_lr = torch.where(active, new_lr, cur_lr)
-        k = k + active.to(k.dtype)
-    return GDResult(alloc, loss(alloc), k)
+        if it % check_every == 0:
+            tally(flag_reads=1)
+            if not bool(active(c, max_steps).any()):
+                break
+        c = advance(body, c, max_steps)
+    return GDResult(c.alloc, loss(c.alloc), c.k)
 
 
 def _gd_solve(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
               adaptive=False, step_impl="fused", check_every=1) -> GDResult:
-    """Single-cell GD at one split vector: ``_gd_core`` on a batch of
-    one.  ``scn``/``s_vec`` (U,)/``q`` (U,)/``x0`` carry no cell axis, nor
-    does the result.  The baselines' entry point."""
+    """Single-cell GD at one split vector: ``_gd_core`` (graphed) on a
+    batch of one.  ``scn``/``s_vec`` (U,)/``q`` (U,)/``x0``
+    carry no cell axis, nor does the result.  The baselines' entry
+    point."""
     one = lambda x: x[None]
     with torch.no_grad():
         res = _gd_core(tree_map(one, scn), one(s_vec), one(q),
@@ -336,12 +332,16 @@ def warm_start_predecessors(uplink_bits, warm_start: bool = True
 
 
 def _sweep_core(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
-                adaptive=False, step_impl="fused", check_every=1
-                ) -> GDResult:
+                adaptive=False, step_impl="fused", check_every=1,
+                graphed=True) -> GDResult:
     """The whole F+1 split sweep over B lanes: a loop over layers whose
     slot buffer (leading axis F+1, then B) starts as ``x_init`` in every
     slot; layer s reads slot ``pred[b, s]`` per lane, runs GD, and writes
-    slot s.  Returns a GDResult whose leaves carry (B, F+1, ...)."""
+    slot s.  Returns a GDResult whose leaves carry (B, F+1, ...).
+
+    ``graphed``: one ``sweep_graph`` runner serves every layer, its
+    scenario, profile, ``q`` and ``build_aux`` pack staged once a sweep;
+    False: ``_gd_core``'s eager loop a layer."""
     n_lanes, n_s = pred.shape
     u = q.shape[-1]
     dev = q.device
@@ -353,17 +353,29 @@ def _sweep_core(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
         from repro_torch.kernels.era_step import ops as _era_step_ops
         step_aux = _era_step_ops.build_aux(scn)
     pred_t = torch.as_tensor(np.asarray(pred), dtype=torch.int64, device=dev)
+    staging = contextlib.nullcontext()
+    if graphed:
+        staging = sweep_graph.staged(scn, prof, q, w, lr=lr, tol=tol,
+                                     max_steps=max_steps, adaptive=adaptive,
+                                     step_impl=step_impl,
+                                     check_every=check_every, aux=step_aux)
     gammas, iters = [], []
-    for s in range(n_s):
-        x0 = tree_map(lambda b: b[pred_t[:, s], lanes], buf)
-        s_vec = torch.full((n_lanes, u), s, dtype=torch.int64, device=dev)
-        res = _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
-                       adaptive=adaptive, step_impl=step_impl,
-                       step_aux=step_aux, check_every=check_every)
-        for b, a in zip(buf, res.alloc):
-            b[s] = a
-        gammas.append(res.gamma)
-        iters.append(res.iters)
+    with staging as runner:
+        for s in range(n_s):
+            x0 = tree_map(lambda b: b[pred_t[:, s], lanes], buf)
+            s_vec = torch.full((n_lanes, u), s, dtype=torch.int64,
+                               device=dev)
+            if runner is not None:
+                res = runner.run(s_vec, x0)
+            else:
+                res = _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w,
+                               prof, adaptive=adaptive, step_impl=step_impl,
+                               step_aux=step_aux, check_every=check_every,
+                               graphed=False)
+            for b, a in zip(buf, res.alloc):
+                b[s] = a
+            gammas.append(res.gamma)
+            iters.append(res.iters)
     return GDResult(tree_map(lambda b: b.transpose(0, 1), buf),
                     torch.stack(gammas, dim=1), torch.stack(iters, dim=1))
 
@@ -449,7 +461,8 @@ def _finalize(prep, q, w, swept, spec: SolverSpec) -> List[LiGDOutcome]:
                            spec.max_steps, w, prof_b,
                            adaptive=spec.adaptive,
                            step_impl=spec.step_impl,
-                           check_every=spec.check_every).alloc
+                           check_every=spec.check_every,
+                           graphed=spec.compiled_sweep).alloc
     else:
         s_user = s_star[:, None].expand(n_cells, u)
         alloc_b = x_star
@@ -551,8 +564,11 @@ def prepare_batch(scns, prof, warm_start: bool = True) -> BatchPrep:
 
 
 def solve_batch(scns, prof, q, w: Weights = Weights(), *,
-                spec: SolverSpec = None, prep: BatchPrep = None,
-                init_alloc: Allocation = None) -> List[LiGDOutcome]:
+                spec: SolverSpec = None, lr=_UNSET, tol=_UNSET,
+                max_steps=_UNSET, warm_start=_UNSET, per_user_split=_UNSET,
+                adaptive=_UNSET, prep: BatchPrep = None,
+                init_alloc: Allocation = None, gd_chunk=_UNSET,
+                mesh=_UNSET, compiled_sweep=_UNSET) -> List[LiGDOutcome]:
     """Schedule B independent cells with one batched sweep.
 
       scns: a list/tuple of structurally compatible ``Scenario``s, or an
@@ -571,9 +587,31 @@ def solve_batch(scns, prof, q, w: Weights = Weights(), *,
     the shard count and dropping the padding; ``'multihost'`` does so for
     THIS process's lanes: every process passes its own lanes, the same
     local count and statics, and gets back outcomes for its own lanes.
+    The sweep is always the compiled one (``compiled_sweep=False`` is
+    ``solve``'s single-cell loop and raises here).
+
+    Legacy kwargs (``gd_chunk=``/``mesh=``/``compiled_sweep=`` plus the
+    numeric knobs) fold onto the equivalent spec through the deprecation
+    shim; mixing them with ``spec=`` raises.
 
     Returns one ``LiGDOutcome`` per cell."""
-    spec = SolverSpec() if spec is None else spec
+    spec = _resolve_spec(spec, "ligd.solve_batch", lr=lr, tol=tol,
+                         max_steps=max_steps, warm_start=warm_start,
+                         per_user_split=per_user_split, adaptive=adaptive,
+                         gd_chunk=gd_chunk, mesh=mesh,
+                         compiled_sweep=compiled_sweep)
+    if not spec.compiled_sweep:
+        raise ValueError(
+            "compiled_sweep=False is the per-layer sequential reference "
+            "loop, a single-cell path — use ligd.solve; solve_batch "
+            "always runs the compiled sweep")
+    return _solve_lanes(scns, prof, q, w, spec, prep, init_alloc)
+
+
+def _solve_lanes(scns, prof, q, w, spec: SolverSpec, prep: BatchPrep,
+                 init_alloc) -> List[LiGDOutcome]:
+    """``solve_batch`` past its argument checks, and ``solve``'s batch of
+    one: the sweep is graphed unless ``spec.compiled_sweep`` is False."""
     if prep is None:
         prep = prepare_batch(scns, prof, spec.warm_start)
     scn_b = prep.scn_b
@@ -616,7 +654,8 @@ def solve_batch(scns, prof, q, w: Weights = Weights(), *,
                                 spec.tol, spec.max_steps, w, prep.prof_b,
                                 adaptive=spec.adaptive,
                                 step_impl=spec.step_impl,
-                                check_every=spec.check_every)
+                                check_every=spec.check_every,
+                                graphed=spec.compiled_sweep)
         return _finalize(prep, q, w, swept, spec)
 
 
@@ -646,18 +685,28 @@ def _placed_sweep(mesh, scn_b, q, x_init, prep, spec, w, sweep_kw):
 
 
 def solve(scn, prof, q, w: Weights = Weights(), *, spec: SolverSpec = None,
-          init_alloc: Allocation = None) -> LiGDOutcome:
+          lr=_UNSET, tol=_UNSET, max_steps=_UNSET, warm_start=_UNSET,
+          per_user_split=_UNSET, init_alloc: Allocation = None,
+          adaptive=_UNSET, compiled_sweep=_UNSET,
+          gd_chunk=_UNSET) -> LiGDOutcome:
     """Run Li-GD (``spec.warm_start=True``) or the cold-start GD baseline
     over every candidate split point for one cell: a batch of one.
+    ``spec.compiled_sweep=False`` runs the eager per-layer loop.
+
+    Legacy kwargs (``lr``/``tol``/… and the deprecated structural pair
+    ``compiled_sweep``/``gd_chunk``) fold onto the equivalent spec;
+    mixing them with ``spec=`` raises.
 
     ``init_alloc`` (online ERA): seed layer 1's GD from a previous time
     step's solution instead of the uninformed start."""
-    spec = SolverSpec() if spec is None else spec
+    spec = _resolve_spec(spec, "ligd.solve", lr=lr, tol=tol,
+                         max_steps=max_steps, warm_start=warm_start,
+                         per_user_split=per_user_split, adaptive=adaptive,
+                         compiled_sweep=compiled_sweep, gd_chunk=gd_chunk)
     if spec.backend in _CELL_SHARDED:
         raise ValueError(f"backend={spec.backend!r} shards a CELL axis — "
                          "use solve_batch (single-cell solve has no cell "
                          "axis)")
     q = torch.as_tensor(q, dtype=torch.float32, device=scn.device)
     init = None if init_alloc is None else stack_allocs([init_alloc])
-    return solve_batch([scn], prof, q[None], w, spec=spec,
-                       init_alloc=init)[0]
+    return _solve_lanes([scn], prof, q[None], w, spec, None, init)[0]

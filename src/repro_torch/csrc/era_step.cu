@@ -39,6 +39,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 #include "seg_scan.cuh"
 
 namespace {
@@ -399,10 +402,31 @@ pass1_kernel(Ops o, const float* rows, float* d_bu, float* d_bd,
   }
 }
 
-cudaError_t smem_limit(const void* fn, size_t bytes) {
+// The dynamic shared-memory limit a kernel was raised to, per device.  The
+// attribute is a property of the function in the device's context, not of a
+// launch: raising it once per device (and again only for a larger U) keeps
+// the call out of launches a CUDA graph captures after its warm-up call.
+// The record is stored only after the attribute is set, under one mutex, so
+// host threads with different U can neither lower the attribute below the
+// record nor skip a raise that another thread has not finished.
+constexpr int kMaxDevices = 64;
+std::atomic<size_t> g_smem_set[2][kMaxDevices];
+std::mutex g_smem_mu;
+
+cudaError_t smem_limit(int which, const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<size_t>& set = g_smem_set[which][dev];
+  if (set.load(std::memory_order_acquire) >= bytes) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(g_smem_mu);
+  if (set.load(std::memory_order_relaxed) >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) set.store(bytes, std::memory_order_release);
+  return err;
 }
 
 }  // namespace
@@ -425,9 +449,9 @@ extern "C" int era_step_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem0 = 5 * (size_t)U * sizeof(float);
   const size_t smem1 = 11 * (size_t)U * sizeof(float);
-  cudaError_t err = smem_limit((const void*)pass0_kernel, smem0);
+  cudaError_t err = smem_limit(0, (const void*)pass0_kernel, smem0);
   if (err != cudaSuccess) return (int)err;
-  err = smem_limit((const void*)pass1_kernel, smem1);
+  err = smem_limit(1, (const void*)pass1_kernel, smem1);
   if (err != cudaSuccess) return (int)err;
   const dim3 chan_grid(M, B);
   const dim3 sum_grid((U + 31) / 32, 2 * B), sum_block(32, kStripes);

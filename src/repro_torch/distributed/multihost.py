@@ -16,7 +16,9 @@ global mesh IS ``solver_mesh.cells_mesh()`` and ``multihost_sweep``
 delegates to ``sharded_sweep``, so the backend is bitwise 'sharded'.
 With several processes a process's part of the global mesh is still its
 local cells mesh: no process can address another's devices, and none
-needs to.
+needs to.  The spec travels whole, ``compiled_sweep`` with the rest (a
+cell-sharded spec is always the compiled sweep), and each process
+captures its own graphs (``core/sweep_graph``).
 
 The process group is gloo, on the card too.  The only collectives are
 ``churn_fence``'s tag exchange (coordinated cell join/leave,

@@ -12,6 +12,9 @@ A mesh is an ordered, hashable tuple of ``torch.device``s, one entry a
 shard; a device may appear more than once.  Shards on distinct devices
 run in one host thread each; shards that share a device run one after
 another in lane order, so no result depends on how threads interleave.
+Each shard's sweep is the compiled one (``core/sweep_graph``): its thread
+captures and replays the graphs of its own card, in ``thread_local``
+capture mode, from a runner cached per device.
 ``cells_mesh(n, device="cpu")`` is n shards on the host, which is how the
 CPU tests exercise a real split (the counterpart of the JAX package's
 forced host device count).

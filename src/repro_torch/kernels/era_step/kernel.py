@@ -6,11 +6,15 @@
 d_r)``.  CUDA tensors launch the kernel (one launch covers every cell);
 CPU tensors take the plain version; inputs that require grad raise (the
 kernel returns ∂Γ itself and has no backward).
-``era_step_fused.launches`` counts kernel launches.
+``era_step_fused.launches`` counts kernel launches.  A call made while its
+stream is captured into a CUDA graph launches nothing: it adds to the
+calling thread's ``thread_launches()[1]`` instead, and whoever replays the
+graph counts its launches (``count_launches``).
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -79,6 +83,24 @@ def _layout(b, m, u):
     return offsets
 
 
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()       # this thread's counted and captured calls
+
+
+def count_launches(n: int = 1):
+    """Add ``n`` launches the device ran to ``era_step_fused.launches``
+    and to the calling thread's tally."""
+    with _COUNT_LOCK:
+        era_step_fused.launches += n
+    _THREAD.ran = thread_launches()[0] + n
+
+
+def thread_launches() -> tuple:
+    """``(ran, captured)`` of the calling thread: the launches it
+    counted, and the calls it recorded into a CUDA graph under capture."""
+    return getattr(_THREAD, "ran", 0), getattr(_THREAD, "captured", 0)
+
+
 def era_step_fused(*operands):
     """One fused forward+backward GD step for B cells."""
     _build.refuse_grad("era_step_fused", "the solver's step_impl='autograd'",
@@ -93,12 +115,17 @@ def era_step_fused(*operands):
     # one allocation a call holds the outputs and the kernel's scratch
     buf = torch.empty((off[-1],), dtype=torch.float32, device=dev)
     base = buf.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
     status = lib.era_step_launch(
         *(x.data_ptr() for x in operands),
         *(base + 4 * o for o in off[:8]), b, m, u, n, stream)
     _build.check(status, "era_step_launch")
-    era_step_fused.launches += 1
+    if capturing:                # recorded: a replay of the graph runs it
+        _THREAD.captured = thread_launches()[1] + 1
+    else:
+        count_launches()
     view = lambda i, shape: buf[off[i]:off[i] + math.prod(shape)].view(shape)
     d_pp = view(3, (2, b, 1, u))
     return (view(0, (b,)), view(1, (b, m, u)), view(2, (b, m, u)),

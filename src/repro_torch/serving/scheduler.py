@@ -111,17 +111,45 @@ def build_schedule(scn, out: ligd.LiGDOutcome) -> Schedule:
     )
 
 
+def _ctor_spec(spec: Optional[ligd.SolverSpec], where: str, defaults: Dict,
+               **legacy) -> ligd.SolverSpec:
+    """Spec resolution for the scheduler constructors: exact ``spec=`` vs
+    legacy-kwarg mix detection via ligd's unset sentinel (an explicitly
+    passed kwarg always raises alongside ``spec=``, even at its default
+    value), and the schedulers' own historical defaults — which differ
+    from ``SolverSpec``'s (``per_user_split=True`` here) — applied only
+    when no spec is given."""
+    passed = {k: v for k, v in legacy.items() if v is not ligd._UNSET}
+    if spec is not None:
+        if passed:
+            raise ValueError(f"{where}: pass either spec= or the legacy "
+                             f"kwargs {sorted(passed)}, not both")
+        return spec
+    kw = dict(defaults)
+    kw.update(passed)
+    return ligd.spec_from_kwargs(**kw)
+
+
 class EraScheduler:
     def __init__(self, scn, prof: profiles.SplitProfile,
                  weights: Weights = Weights(),
-                 spec: ligd.SolverSpec = None):
-        """One-cell ERA scheduler.  ``spec`` defaults to the scheduler's
-        historical policy, ERA+ per-user splits."""
+                 spec: ligd.SolverSpec = None, *,
+                 per_user_split=ligd._UNSET, max_steps=ligd._UNSET,
+                 lr=ligd._UNSET, tol=ligd._UNSET,
+                 compiled_sweep=ligd._UNSET):
+        """One-cell ERA scheduler.  ``spec`` describes the solve; the
+        legacy kwargs fold onto one when no spec is given (the scheduler's
+        historical policy, ERA+ per-user splits, as defaults).  Mixing
+        ``spec=`` with a legacy kwarg raises, as ``ligd.solve`` does."""
+        self.spec = _ctor_spec(spec, "EraScheduler",
+                               dict(per_user_split=True, max_steps=400,
+                                    lr=0.05, tol=1e-5, compiled_sweep=True),
+                               per_user_split=per_user_split,
+                               max_steps=max_steps, lr=lr, tol=tol,
+                               compiled_sweep=compiled_sweep)
         self.scn = scn
         self.prof = prof
         self.weights = weights
-        self.spec = spec if spec is not None else \
-            ligd.SolverSpec(per_user_split=True)
 
     def schedule(self, q_thresholds) -> Schedule:
         out = ligd.solve(self.scn, self.prof, q_thresholds, self.weights,
@@ -139,9 +167,20 @@ class MultiCellScheduler:
 
     def __init__(self, scns: Sequence, prof,
                  weights: Weights = Weights(),
-                 spec: ligd.SolverSpec = None):
-        spec = spec if spec is not None else \
-            ligd.SolverSpec(per_user_split=True)
+                 spec: ligd.SolverSpec = None, *,
+                 per_user_split=ligd._UNSET, max_steps=ligd._UNSET,
+                 lr=ligd._UNSET, tol=ligd._UNSET, gd_chunk=ligd._UNSET,
+                 mesh=ligd._UNSET):
+        """``spec`` describes every solve this scheduler runs; the legacy
+        kwargs fold onto one when no spec is given (``gd_chunk``/``mesh``
+        select the chunked/sharded backends as ``ligd.spec_from_kwargs``
+        does).  Mixing ``spec=`` with a legacy kwarg raises."""
+        spec = _ctor_spec(spec, "MultiCellScheduler",
+                          dict(per_user_split=True, max_steps=400, lr=0.05,
+                               tol=1e-5, gd_chunk=0, mesh=None),
+                          per_user_split=per_user_split,
+                          max_steps=max_steps, lr=lr, tol=tol,
+                          gd_chunk=gd_chunk, mesh=mesh)
         if spec.backend in ("sharded", "multihost") and spec.mesh is None:
             # resolve the all-devices default ONCE: every schedule() then
             # runs on the same mesh object

@@ -101,6 +101,30 @@ def assert_within_spread(got, want, other, scale, what, whole=False):
                                 f"bar there {bar.flat[err.argmax()]:.3e}")
 
 
+def assert_outcome(got, want, other):
+    """A port ``LiGDOutcome`` against JAX's with the same step kind
+    (``want``), ``other`` being JAX's with its other step kind: splits,
+    iteration counts and one-hot β exactly, Γ landscape, final Γ and the
+    continuous allocation leaves within ``assert_within_spread``."""
+    np.testing.assert_array_equal(np.asarray(got.s), np.asarray(want.s))
+    np.testing.assert_array_equal(got.iters_by_layer, want.iters_by_layer)
+    assert got.total_iters == want.total_iters
+    assert_within_spread(got.gamma_by_layer, want.gamma_by_layer,
+                         other.gamma_by_layer, np.abs(want.gamma_by_layer),
+                         "gamma_by_layer")
+    assert_within_spread(got.terms.gamma, want.terms.gamma,
+                         other.terms.gamma, abs(float(want.terms.gamma)),
+                         "gamma")
+    for name, g, w, o in zip(got.alloc._fields, got.alloc, want.alloc,
+                             other.alloc):
+        if name in ("beta_up", "beta_dn"):
+            np.testing.assert_array_equal(to_np(g), np.asarray(w),
+                                          err_msg=name)
+        else:
+            assert_within_spread(g, w, o, np.max(np.abs(np.asarray(w))),
+                                 name, whole=True)
+
+
 def train_state(cfg, jstate):
     """A JAX train state (``launch.steps.init_train_state``'s layout) as
     the port's, on the CPU."""

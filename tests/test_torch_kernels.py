@@ -16,7 +16,8 @@ import port_bridge as pb
 from repro_torch.core import era, network, noma, profiles
 from repro_torch.kernels.era_step import ops as eops
 from repro_torch.kernels.era_step import ref as eref
-from repro_torch.kernels.era_step.kernel import era_step_fused
+from repro_torch.kernels.era_step.kernel import (era_step_fused,
+                                                 thread_launches)
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.flash_attention.kernel import (
@@ -358,6 +359,100 @@ def _edge_scenario(case, device):
         b_dn[0, :, 0][aux.dn_rank[0, 0] >= u // 2] = 0.0
         alloc = alloc._replace(beta_up=b_up, beta_dn=b_dn)
     return scn, alloc
+
+
+@pytest.mark.cuda
+def test_era_step_kernel_captured_in_a_cuda_graph(cuda_device):
+    """One ``era_step_fused`` call captured in a CUDA graph: a replay
+    equals an eager call bitwise, on the captured inputs and on new ones
+    copied into the same buffers.  The call under capture launches
+    nothing: the wrapper adds it to the thread's captured calls, not to
+    its count, and a bare replay runs no counter (the solver's runner adds
+    a replay's launches)."""
+    b, u, m = 2, 300, 16
+    cfg = network.small_config(n_users=u, n_subchannels=m)
+    scn = network.stack_scenarios(
+        [network.make_scenario(torch.Generator().manual_seed(i), cfg,
+                               cuda_device) for i in range(b)])
+    prof = profiles.get_profile("yolov2", cuda_device)
+    s = torch.full((b, u), 5, dtype=torch.int64, device=cuda_device)
+    q = torch.full((b, u), 0.3, device=cuda_device)
+    aux = eops.build_aux(scn)
+    allocs = [era.uniform_alloc(scn, torch.Generator().manual_seed(k))
+              for k in (9, 10)]
+    ops = [x.clone() for x in eops._operands(scn, prof, s, q, allocs[0],
+                                             aux, era.Weights())]
+    want = [tuple(x.clone() for x in era_step_fused(*eops._operands(
+        scn, prof, s, q, a, aux, era.Weights()))) for a in allocs]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        era_step_fused(*ops)                       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = era_step_fused.launches
+    ran, captured = thread_launches()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        out = era_step_fused(*ops)
+    assert era_step_fused.launches == before
+    assert thread_launches() == (ran, captured + 1)
+    for k, alloc in enumerate(allocs):
+        new = eops._operands(scn, prof, s, q, alloc, aux, era.Weights())
+        for dst, src in zip(ops, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert era_step_fused.launches == before
+        assert all(torch.equal(x, y) for x, y in zip(out, want[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_impl,adaptive,chunk", [
+    ("fused", False, 1), ("fused", False, 7), ("autograd", False, 1),
+    ("fused", True, 1)])
+def test_graphed_sweep_equals_eager_loop(cuda_device, step_impl, adaptive,
+                                         chunk):
+    """``ligd._sweep_core`` graphed (the compiled sweep) against its eager
+    loop on the card: iteration counts equal, Γ and every allocation leaf
+    bitwise, and as many era_step launches less the capture warm-ups' (a
+    chunk of 7 in a 40-step budget ends with a graph of the 5 remaining
+    steps).  The autograd
+    body is held at the solver's bar instead (Γ rtol 1e-5, leaves 1e-5 of
+    their max): the backward of its gathers is a scatter-add that sums
+    with atomics in a run-dependent order, so two eager runs differ in
+    their last bits too."""
+    from repro_torch.core import ligd
+    cfg = network.small_config(n_users=12, n_subchannels=6)
+    scns = [network.make_scenario(torch.Generator().manual_seed(50 + i), cfg,
+                                  cuda_device) for i in range(4)]
+    prep = ligd.prepare_batch(scns, profiles.get_profile("nin", cuda_device))
+    q = torch.linspace(0.2, 0.6, 4, device=cuda_device)[:, None].expand(
+        4, 12).contiguous()
+    x_init = era.uniform_alloc(prep.scn_b)
+    outs, launches = [], []
+    for graphed in (True, False):
+        ligd.SWEEP_STATS.update(warmup_launches=0)
+        n0 = era_step_fused.launches
+        with torch.no_grad():
+            outs.append(ligd._sweep_core(
+                prep.scn_b, q, x_init, prep.pred_b, 0.05, 1e-4, 40,
+                era.Weights(), prep.prof_b, adaptive=adaptive,
+                step_impl=step_impl, check_every=chunk, graphed=graphed))
+        torch.cuda.synchronize()
+        launches.append(era_step_fused.launches - n0
+                        - ligd.SWEEP_STATS["warmup_launches"])
+    g, e = outs
+    assert torch.equal(g.iters, e.iters)
+    if step_impl == "autograd":
+        torch.testing.assert_close(g.gamma, e.gamma, rtol=1e-5, atol=0)
+        pb.assert_leaves_close([x.cpu() for x in g.alloc],
+                               [x.cpu() for x in e.alloc], atol=1e-5)
+    else:
+        assert torch.equal(g.gamma, e.gamma)
+        assert all(torch.equal(x, y) for x, y in zip(g.alloc, e.alloc))
+    assert launches[0] == launches[1]
+    assert (launches[0] > 0) == (step_impl == "fused")
 
 
 @pytest.mark.cuda

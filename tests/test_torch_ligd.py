@@ -32,29 +32,12 @@ from repro_torch.core import era, ligd, network
 IMPLS = {"autograd": "xla", "fused": "fused"}
 BACKENDS = ("reference", "chunked")
 PUS = (False, True)
-ONE_HOT = ("beta_up", "beta_dn")
 
 
 def _assert_outcome(got, want, other):
     """``got`` (port) against ``want`` (JAX, same step kind); ``other`` is
     JAX's outcome with its other step kind, for the spread."""
-    np.testing.assert_array_equal(np.asarray(got.s), np.asarray(want.s))
-    np.testing.assert_array_equal(got.iters_by_layer, want.iters_by_layer)
-    assert got.total_iters == want.total_iters
-    pb.assert_within_spread(got.gamma_by_layer, want.gamma_by_layer,
-                            other.gamma_by_layer,
-                            np.abs(want.gamma_by_layer), "gamma_by_layer")
-    pb.assert_within_spread(got.terms.gamma, want.terms.gamma,
-                            other.terms.gamma, abs(float(want.terms.gamma)),
-                            "gamma")
-    for name, g, w, o in zip(era.Allocation._fields, got.alloc, want.alloc,
-                             other.alloc):
-        if name in ONE_HOT:
-            np.testing.assert_array_equal(pb.to_np(g), np.asarray(w),
-                                          err_msg=name)
-        else:
-            pb.assert_within_spread(g, w, o, np.max(np.abs(np.asarray(w))),
-                                    name, whole=True)
+    pb.assert_outcome(got, want, other)
 
 
 def _other(impl):
