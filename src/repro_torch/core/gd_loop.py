@@ -8,7 +8,11 @@ step (the eager loop); ``sweep_graph.SweepRunner`` captures
 ``check_every`` of them as a CUDA graph (the compiled sweep).
 ``SWEEP_STATS`` counts what either did: the host's reads of the "some lane
 is still active" flag, graph replays, graph captures and the era_step
-launches of the capture warm-ups.
+launches of the capture warm-ups.  Each count also goes to the innermost
+open ``telemetry.spans`` span of the counting thread (a solver layer's,
+or the per-user GD's), beside the steps run, the time the host waited on
+the flag (``flag_wait_s``) and, graphed, its time in the replay calls
+(``replay_s``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.core.era import Allocation, clip_alloc, utility
 from repro_torch.core.network import env_col, tree_map
 from repro_torch.kernels.era_step import ops as era_step_ops
+from repro_torch.telemetry import spans
 
 # over every solve since the last reset (``SWEEP_STATS.update(...)``)
 SWEEP_STATS = dict(flag_reads=0, replays=0, captures=0, warmup_launches=0)
@@ -27,10 +32,12 @@ _STATS_LOCK = threading.Lock()
 
 
 def tally(**counts):
-    """Add ``counts`` to ``SWEEP_STATS`` (shard threads count at once)."""
+    """Add ``counts`` to ``SWEEP_STATS`` (shard threads count at once)
+    and to this thread's innermost open span."""
     with _STATS_LOCK:
         for name, n in counts.items():
             SWEEP_STATS[name] += n
+    spans.add(**counts)
 
 
 class GDResult(NamedTuple):

@@ -57,6 +57,7 @@ contribution, then re-polish the allocation with the mixed split vector.
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
@@ -73,6 +74,8 @@ from repro_torch.core.era import (Allocation, Terms, Weights, delay_terms,
 from repro_torch.core.gd_loop import (SWEEP_STATS, GDResult, active,
                                       advance, gd_step, init_carry, tally)
 from repro_torch.core.network import tree_map
+from repro_torch.kernels.era_step import kernel as era_step_kernel
+from repro_torch.telemetry import spans
 
 _BACKENDS = ("reference", "chunked", "sharded", "multihost")
 _CELL_SHARDED = ("sharded", "multihost")
@@ -286,12 +289,18 @@ def _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w, prof,
     loss, body = gd_step(scn, s_vec, q, lr, tol, w, prof, adaptive=adaptive,
                          step_impl=step_impl, step_aux=step_aux)
     c = init_carry(loss, x0, lr, adaptive)
+    steps = 0
     for it in range(max_steps):
         if it % check_every == 0:
+            t0 = time.perf_counter()
+            still = bool(active(c, max_steps).any())
+            spans.add(flag_wait_s=time.perf_counter() - t0)
             tally(flag_reads=1)
-            if not bool(active(c, max_steps).any()):
+            if not still:
                 break
         c = advance(body, c, max_steps)
+        steps += 1
+    spans.add(steps=steps)
     return GDResult(c.alloc, loss(c.alloc), c.k)
 
 
@@ -341,7 +350,23 @@ def _sweep_core(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
 
     ``graphed``: one ``sweep_graph`` runner serves every layer, its
     scenario, profile, ``q`` and ``build_aux`` pack staged once a sweep;
-    False: ``_gd_core``'s eager loop a layer."""
+    False: ``_gd_core``'s eager loop a layer.
+
+    The sweep is the ``solver.sweep`` span (``telemetry.spans``), whose
+    ``launches`` are the era_step launches this thread ran in it."""
+    with spans.span("solver.sweep") as sweep:
+        ran = era_step_kernel.thread_launches()[0]
+        out = _sweep_layers(scn, q, x_init, pred, lr, tol, max_steps, w,
+                            prof, adaptive, step_impl, check_every, graphed)
+        if sweep:
+            sweep.set(launches=era_step_kernel.thread_launches()[0] - ran)
+        return out
+
+
+def _sweep_layers(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
+                  adaptive, step_impl, check_every, graphed) -> GDResult:
+    """``_sweep_core``'s work: a ``solver.layer`` span a layer, which the
+    GD loop's counts (``gd_loop.tally``) land in."""
     n_lanes, n_s = pred.shape
     u = q.shape[-1]
     dev = q.device
@@ -362,18 +387,19 @@ def _sweep_core(scn, q, x_init, pred, lr, tol, max_steps, w, prof,
     gammas, iters = [], []
     with staging as runner:
         for s in range(n_s):
-            x0 = tree_map(lambda b: b[pred_t[:, s], lanes], buf)
-            s_vec = torch.full((n_lanes, u), s, dtype=torch.int64,
-                               device=dev)
-            if runner is not None:
-                res = runner.run(s_vec, x0)
-            else:
-                res = _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w,
-                               prof, adaptive=adaptive, step_impl=step_impl,
-                               step_aux=step_aux, check_every=check_every,
-                               graphed=False)
-            for b, a in zip(buf, res.alloc):
-                b[s] = a
+            with spans.span("solver.layer", split=s):
+                x0 = tree_map(lambda b: b[pred_t[:, s], lanes], buf)
+                s_vec = torch.full((n_lanes, u), s, dtype=torch.int64,
+                                   device=dev)
+                if runner is not None:
+                    res = runner.run(s_vec, x0)
+                else:
+                    res = _gd_core(scn, s_vec, q, x0, lr, tol, max_steps, w,
+                                   prof, adaptive=adaptive,
+                                   step_impl=step_impl, step_aux=step_aux,
+                                   check_every=check_every, graphed=False)
+                for b, a in zip(buf, res.alloc):
+                    b[s] = a
             gammas.append(res.gamma)
             iters.append(res.iters)
     return GDResult(tree_map(lambda b: b.transpose(0, 1), buf),
@@ -442,7 +468,10 @@ def soften_beta(scn, alloc: Allocation, eps: float = 0.1) -> Allocation:
 def _finalize(prep, q, w, swept, spec: SolverSpec) -> List[LiGDOutcome]:
     """Shared post-sweep discretisation over B lanes: s* pick (+ ERA+
     per-user split & polish), per-cell β rounding on the host, SIC
-    fallback and final Γ."""
+    fallback and final Γ.  Inside the ``solver.finalize`` span its caller
+    opens, each of the three is a span: ``finalize.per_user_gd`` (which
+    the GD loop's counts land in), ``finalize.round_beta`` and
+    ``finalize.discretize``."""
     scn_b, scn_list, prof_b = prep.scn_b, prep.scn_list, prep.prof_b
     n_cells = len(scn_list)
     f = prep.prof_list[0].n_layers
@@ -455,24 +484,33 @@ def _finalize(prep, q, w, swept, spec: SolverSpec) -> List[LiGDOutcome]:
     x_star = tree_map(lambda x: x[lanes, s_star], swept.alloc)
 
     if spec.per_user_split:
-        costs = _cost_table(scn_b, prof_b, swept.alloc, q, w)  # (B, F+1, U)
-        s_user = torch.argmin(costs, dim=1)
-        alloc_b = _gd_core(scn_b, s_user, q, x_star, spec.lr, spec.tol,
-                           spec.max_steps, w, prof_b,
-                           adaptive=spec.adaptive,
-                           step_impl=spec.step_impl,
-                           check_every=spec.check_every,
-                           graphed=spec.compiled_sweep).alloc
+        with spans.span("finalize.per_user_gd") as gd:
+            ran = era_step_kernel.thread_launches()[0]
+            # (B, F+1, U)
+            costs = _cost_table(scn_b, prof_b, swept.alloc, q, w)
+            s_user = torch.argmin(costs, dim=1)
+            alloc_b = _gd_core(scn_b, s_user, q, x_star, spec.lr, spec.tol,
+                               spec.max_steps, w, prof_b,
+                               adaptive=spec.adaptive,
+                               step_impl=spec.step_impl,
+                               check_every=spec.check_every,
+                               graphed=spec.compiled_sweep).alloc
+            if gd:
+                gd.set(launches=era_step_kernel.thread_launches()[0] - ran)
     else:
         s_user = s_star[:, None].expand(n_cells, u)
         alloc_b = x_star
 
     # discretise per cell (host greedy), then one batched SIC+Γ evaluation
-    hard_list = [round_beta(scn_list[b], tree_map(lambda x: x[b], alloc_b))
-                 for b in range(n_cells)]
-    hard_b = stack_allocs(hard_list)
-    s_final_b, terms_b = _discretize(scn_b, prof_b, s_user, hard_b, q, w, f)
-    s_final_np = s_final_b.cpu().numpy()
+    with spans.span("finalize.round_beta"):
+        hard_list = [round_beta(scn_list[b],
+                                tree_map(lambda x: x[b], alloc_b))
+                     for b in range(n_cells)]
+        hard_b = stack_allocs(hard_list)
+    with spans.span("finalize.discretize"):
+        s_final_b, terms_b = _discretize(scn_b, prof_b, s_user, hard_b, q,
+                                         w, f)
+        s_final_np = s_final_b.cpu().numpy()
     return [
         LiGDOutcome(
             s=s_final_np[b],
@@ -656,7 +694,8 @@ def _solve_lanes(scns, prof, q, w, spec: SolverSpec, prep: BatchPrep,
                                 step_impl=spec.step_impl,
                                 check_every=spec.check_every,
                                 graphed=spec.compiled_sweep)
-        return _finalize(prep, q, w, swept, spec)
+        with spans.span("solver.finalize"):
+            return _finalize(prep, q, w, swept, spec)
 
 
 def _placed_sweep(mesh, scn_b, q, x_init, prep, spec, w, sweep_kw):

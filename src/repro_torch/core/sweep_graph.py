@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -67,6 +68,7 @@ from repro_torch.core.era import utility
 from repro_torch.core.network import tree_map
 from repro_torch.kernels.era_step import kernel as era_step_kernel
 from repro_torch.kernels.era_step import ops as era_step_ops
+from repro_torch.telemetry import spans
 
 MAX_RUNNERS = 16
 
@@ -207,20 +209,25 @@ class SweepRunner:
 
     def _replay(self, n: int):
         gd_loop.tally(replays=1)
+        t0 = time.perf_counter()
         if self.graphs is None:               # the CPU: the same steps
             self._steps(n)
-            return
-        graph, launches = self.graphs[n]
-        with torch.cuda.device(self.device):
-            graph.replay()
-        if launches:
-            era_step_kernel.count_launches(launches)
+        else:
+            graph, launches = self.graphs[n]
+            with torch.cuda.device(self.device):
+                graph.replay()
+            if launches:
+                era_step_kernel.count_launches(launches)
+        spans.add(steps=n, replay_s=time.perf_counter() - t0)
 
     def _still_active(self) -> bool:
+        t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        flag = bool(self.flag)
+        spans.add(flag_wait_s=time.perf_counter() - t0)
         gd_loop.tally(flag_reads=1)
-        return bool(self.flag)
+        return flag
 
     def _start(self, x0):
         self.carry = _fill(self.carry, gd_loop.init_carry(

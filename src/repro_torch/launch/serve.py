@@ -21,8 +21,10 @@ background solver thread re-schedules on simulated arrivals and drift):
 
 Async mode always runs over a ``telemetry.TelemetryBus`` and ends with a
 summary table (rounds, p99 solve ms, QoE attainment).  ``--trace PATH``
-lands every event as JSONL; ``--governor`` attaches the ``QoSGovernor``
-(defer low-drift cells under pressure, prioritise failing QoE).
+lands every event as JSONL, the spans of every admission and serving
+round (``telemetry.spans``, on the ``span`` stream) among them;
+``--governor`` attaches the ``QoSGovernor`` (defer low-drift cells under
+pressure, prioritise failing QoE).
 
 Cell-churn demo (mid-run join/leave with zero dropped rounds; surviving
 cells' schedule carry-over is asserted):
@@ -48,6 +50,7 @@ folds into its key (``loadgen.driver.seeded_generator``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -131,8 +134,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--qoe-age-cap-s", type=float, default=1.0,
                     help="upper bound on aged thresholds, seconds")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="async mode: write every telemetry event as "
-                         "JSONL to PATH (telemetry.FileSink)")
+                    help="async mode: write every telemetry event, the "
+                         "spans among them, as JSONL to PATH "
+                         "(telemetry.FileSink)")
     ap.add_argument("--governor", action="store_true",
                     help="async mode: attach the QoSGovernor — defer "
                          "low-drift cells under pressure, prioritise "
@@ -197,13 +201,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         from repro_torch.serving.cluster import SplitInferenceCluster
         from repro_torch.serving.governor import QoSGovernor
-        from repro_torch.telemetry import FileSink, TelemetryBus
+        from repro_torch.telemetry import FileSink, TelemetryBus, spans
 
         bus = TelemetryBus()
         sink = None
+        tracing = contextlib.ExitStack()
         if args.trace:
             sink = FileSink(args.trace)
             bus.attach(sink)
+            # every finished span (telemetry.spans) on the `span` stream
+            tracing.enter_context(spans.enable(bus))
         governor = QoSGovernor() if args.governor else None
 
         cells = max(args.cells, 1)
@@ -345,6 +352,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 n = int(round(s.mean * s.count)) if s and s.count else 0
                 row(f"governor {fld[2:]}", n)
         if sink is not None:
+            tracing.close()
             bus.detach(sink)
             sink.close()
             print(f"telemetry trace -> {args.trace}")

@@ -68,14 +68,24 @@ arrival resets the user's age to zero.
 
 Telemetry (``bus=``, optional, duck-typed: anything with
 ``emit(name, **fields)``, such as ``repro_torch.telemetry.TelemetryBus``):
-every round phase is emitted — ``admission_round``
-(arrival/touched/solved counts, solver wall time and iterations,
-per-phase durations), per-cell
+each round emits ``admission_round`` (arrival/touched/solved counts, the
+solve's and the round's wall time, ``solve_wall_s`` and
+``round_wall_s``, and iterations), per-cell
 ``qoe_attainment`` (fraction of users whose predicted delay beats their
 effective aged threshold — the paper's QoE target, finally measured),
 ``governor`` decisions and ``round_error`` for caught solver-round
 exceptions.  With no bus attached every emit site is a single
 ``is not None`` check — the no-telemetry path allocates nothing.
+
+The round's phases are ``telemetry.spans``, recorded while the tracer
+records: ``admission.round`` (drain to install, ``t_start`` to
+``t_installed``; its trace id the round's sequence number; fields
+``n_arrivals``, ``queue_wait_sum_s``/``queue_wait_max_s`` — the drain
+time less each drained arrival's ``Arrival.t``, on the controller's
+clock — ``n_solved`` and ``partial``), and under it ``admission.drain``,
+``admission.restack`` (``cells``), the solver's ``solver.sweep`` and
+``solver.finalize`` (``core.ligd``), ``admission.build`` (the
+scheduler's ``build_schedule`` calls) and ``admission.swap``.
 
 QoS governor (``governor=``, optional, duck-typed, such as
 ``repro_torch.serving.governor.QoSGovernor``): consulted between DRAIN and SOLVE.  Cells it defers
@@ -104,6 +114,7 @@ import numpy as np
 
 from repro_torch.core import network
 from repro_torch.serving.engine import MultiCellServeEngine
+from repro_torch.telemetry import spans
 
 # bounded error backlog: always-on runs must never grow this without
 # bound (each caught round failure also lands as a `round_error` event)
@@ -343,6 +354,7 @@ class AdmissionController:
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
         self._last_round_t: Optional[float] = None
+        self._round_seq = 0       # admission rounds run: the spans' trace id
 
     @property
     def n_cells(self) -> int:
@@ -458,98 +470,120 @@ class AdmissionController:
         if not arrivals and not dirty:
             return None
         t_start = self.clock()
+        self._round_seq += 1
         bus = self.bus
         decision = None
-        with self._state_lock:
-            # bootstrap publishes _q under this lock; checking it out here
-            # (as this method once did) races a concurrent bootstrap into
-            # a half-initialised round instead of a clean error
-            if self._q is None:
-                raise RuntimeError(
-                    "bootstrap() before running admission rounds")
-            for a in arrivals:
-                self._q[a.cell, a.user] = a.q_s
-                self._t_posted[a.cell, a.user] = a.t
-            touched = sorted(dirty | {a.cell for a in arrivals})
-            drift = {b: network.scenario_drift(self._live[b], self._ref[b])
-                     for b in sorted(dirty)}
-            if self.governor is not None:
-                # the governor ranks by drift across the WHOLE touched
-                # set — arrival-only cells measure theirs here (skipped
-                # ungoverned: the round would not use it)
-                drift_all = dict(drift)
-                for b in touched:
-                    if b not in drift_all:
-                        drift_all[b] = network.scenario_drift(
-                            self._live[b], self._ref[b])
-                decision = self.governor.review(
-                    touched, drift_all, self._attainment, self.n_cells)
-            # snapshot the scenarios this round actually solves: _live may
-            # move again while the solve runs, and the drift reference must
-            # be the state the installed schedule was solved ON
-            solved = list(self._live)
-            q = self._effective_q_locked(t_start)
+        # the round's phases are spans (module docs), drain to install
+        with spans.span("admission.round", trace_id=self._round_seq,
+                        n_arrivals=len(arrivals)) as round_span:
+            if round_span and arrivals:
+                waits = [t_start - a.t for a in arrivals]
+                round_span.set(queue_wait_sum_s=sum(waits),
+                               queue_wait_max_s=max(waits))
+            with spans.span("admission.drain"), self._state_lock:
+                # bootstrap publishes _q under this lock; checking it out
+                # here (as this method once did) races a concurrent
+                # bootstrap into a half-initialised round instead of a
+                # clean error
+                if self._q is None:
+                    raise RuntimeError(
+                        "bootstrap() before running admission rounds")
+                for a in arrivals:
+                    self._q[a.cell, a.user] = a.q_s
+                    self._t_posted[a.cell, a.user] = a.t
+                touched = sorted(dirty | {a.cell for a in arrivals})
+                drift = {b: network.scenario_drift(self._live[b],
+                                                   self._ref[b])
+                         for b in sorted(dirty)}
+                if self.governor is not None:
+                    # the governor ranks by drift across the WHOLE touched
+                    # set — arrival-only cells measure theirs here
+                    # (skipped ungoverned: the round would not use it)
+                    drift_all = dict(drift)
+                    for b in touched:
+                        if b not in drift_all:
+                            drift_all[b] = network.scenario_drift(
+                                self._live[b], self._ref[b])
+                    decision = self.governor.review(
+                        touched, drift_all, self._attainment, self.n_cells)
+                # snapshot the scenarios this round actually solves: _live
+                # may move again while the solve runs, and the drift
+                # reference must be the state the installed schedule was
+                # solved ON
+                solved = list(self._live)
+                q = self._effective_q_locked(t_start)
 
-        if decision is not None:
-            self._deferred.update(decision.deferred)
-            if bus is not None:
-                for c in decision.deferred:
-                    bus.emit("governor", decision="deferred", cell=c,
-                             drift=float(drift_all.get(c, 0.0)),
-                             defer_count=self.governor.defer_count(c))
-                for c in decision.prioritised:
-                    bus.emit("governor", decision="prioritised", cell=c,
-                             attainment=float(self._attainment[c]))
-                for c in decision.forced:
-                    bus.emit("governor", decision="forced", cell=c)
-            if not decision.solve:
-                # fully shed round: nothing solves, nothing swaps; the
-                # deferred set re-arms the next round trigger
+            if decision is not None:
+                self._deferred.update(decision.deferred)
                 if bus is not None:
-                    # no solve_wall_s field on a shed round: the p99
-                    # solve-latency aggregate must summarise real solves,
-                    # not governor-shed zeros
-                    bus.emit("admission_round", version=-1,
-                             n_arrivals=len(arrivals),
-                             n_touched=len(touched), n_solved=0,
-                             n_deferred=len(decision.deferred),
-                             n_prioritised=0, n_forced=0, iters=0,
-                             round_wall_s=time.perf_counter() - t_wall0)
-                return None
-            touched = sorted(decision.solve)
+                    for c in decision.deferred:
+                        bus.emit("governor", decision="deferred", cell=c,
+                                 drift=float(drift_all.get(c, 0.0)),
+                                 defer_count=self.governor.defer_count(c))
+                    for c in decision.prioritised:
+                        bus.emit("governor", decision="prioritised", cell=c,
+                                 attainment=float(self._attainment[c]))
+                    for c in decision.forced:
+                        bus.emit("governor", decision="forced", cell=c)
+                n_touched = len(touched)
+                touched = sorted(decision.solve)   # empty: a shed round
 
-        # multi-process multihost schedulers route EVERY incremental round
-        # through the subset path (host-local solves): this process's
-        # arrival and drift queue cannot put all processes in lockstep
-        partial = self.partial_batch and (
-            len(touched) < self.n_cells
-            or self.scheduler.host_local_rounds)
+            # multi-process multihost schedulers route EVERY incremental
+            # round through the subset path (host-local solves): this
+            # process's arrival and drift queue cannot put all processes
+            # in lockstep
+            partial = self.partial_batch and (
+                len(touched) < self.n_cells
+                or self.scheduler.host_local_rounds)
+            round_span.set(n_solved=len(touched), partial=partial)
 
-        # outside the lock: scheduler state belongs to this (single-
-        # consumer) round, and the scatter/restack dispatches must not
-        # stall serving-side submit()/observe_scenario() producers.
-        # Partial rounds scatter only the touched lanes into the stacked
-        # prep (O(k) host work); full rounds restack all B.
-        self.scheduler.update_scenarios(
-            solved, cells=touched if partial else None)
+            if touched:
+                # outside the lock: scheduler state belongs to this
+                # (single-consumer) round, and the scatter/restack
+                # dispatches must not stall serving-side submit()/
+                # observe_scenario() producers.  Partial rounds scatter
+                # only the touched lanes into the stacked prep (O(k) host
+                # work); full rounds restack all B.
+                with spans.span("admission.restack",
+                                cells=len(touched) if partial
+                                else self.n_cells):
+                    self.scheduler.update_scenarios(
+                        solved, cells=touched if partial else None)
 
-        t_solve0 = time.perf_counter()
-        if partial:
-            subset = self.scheduler.schedule(q, warm=self.warm_start,
-                                             cells=touched)
-            per_cell = dict(zip(touched, subset))
-            iters = sum(s.iters for s in subset)      # this round's lanes
-        else:
-            scheds = self.scheduler.schedule(q, warm=self.warm_start)
-            per_cell = {b: scheds[b] for b in touched}
-            iters = sum(s.iters for s in scheds)      # all B lanes solved
-        solve_s = time.perf_counter() - t_solve0
-        version = self.engine.swap_schedules(per_cell)
+                t_solve0 = time.perf_counter()
+                if partial:
+                    subset = self.scheduler.schedule(
+                        q, warm=self.warm_start, cells=touched)
+                    per_cell = dict(zip(touched, subset))
+                    iters = sum(s.iters for s in subset)  # this round's lanes
+                else:
+                    scheds = self.scheduler.schedule(q, warm=self.warm_start)
+                    per_cell = {b: scheds[b] for b in touched}
+                    iters = sum(s.iters for s in scheds)  # all B lanes solved
+                solve_s = time.perf_counter() - t_solve0
+                with spans.span("admission.swap"):
+                    version = self.engine.swap_schedules(per_cell)
+                t_installed = self.clock()
+
+        if not touched:
+            # fully shed round: the governor solves nothing, nothing
+            # swaps; the deferred set re-arms the next round trigger
+            if bus is not None:
+                # no solve_wall_s field on a shed round: the p99
+                # solve-latency aggregate must summarise real solves,
+                # not governor-shed zeros
+                bus.emit("admission_round", version=-1,
+                         n_arrivals=len(arrivals),
+                         n_touched=n_touched, n_solved=0,
+                         n_deferred=len(decision.deferred),
+                         n_prioritised=0, n_forced=0, iters=0,
+                         round_wall_s=time.perf_counter() - t_wall0)
+            return None
 
         rnd = AdmissionRound(
             version=version, cells=tuple(touched),
             n_arrivals=len(arrivals), drift=drift, total_iters=iters,
-            t_start=t_start, t_installed=self.clock())
+            t_start=t_start, t_installed=t_installed)
         with self._state_lock:
             for b in touched:
                 self._ref[b] = solved[b]

@@ -61,6 +61,7 @@ from repro_torch.launch.platform import resolve_device
 from repro_torch.serving.admission import AdmissionController, AdmissionRound
 from repro_torch.serving.engine import MultiCellServeEngine, RequestResult
 from repro_torch.serving.scheduler import MultiCellScheduler, Schedule
+from repro_torch.telemetry import spans
 
 # Stable handle for one cell, valid across join/leave for the cluster
 # lifetime.  NEVER a lane index: lanes shift on churn, CellIds do not.
@@ -353,7 +354,8 @@ class SplitInferenceCluster:
         by CellId.  The CellId list and the engine's snapshot are captured
         under one facade-lock acquisition, so a concurrent churn op can
         never pair this round's ids with a differently-shaped schedule
-        set; the round then executes outside the lock."""
+        set; the round then executes outside the lock, as the
+        ``serve.round`` span (``telemetry.spans``)."""
         self._require_started()
         with self._lock:
             ids = list(self._ids)
@@ -370,8 +372,11 @@ class SplitInferenceCluster:
             if len(tokens) != len(ids):
                 raise ValueError(f"need tokens for {len(ids)} cells, "
                                  f"got {len(tokens)}")
-        rounds = self.engine.serve_snapshot(ss, scns, profs, tokens,
-                                            decode_steps=decode_steps)
+        with spans.span("serve.round", n_cells=len(ids)) as round_span:
+            rounds = self.engine.serve_snapshot(ss, scns, profs, tokens,
+                                                decode_steps=decode_steps)
+            if round_span:
+                round_span.set(n_users=sum(len(r) for r in rounds))
         if self.bus is not None:
             self.bus.emit("serve_round", version=ss.version,
                           n_cells=len(ids),

@@ -44,6 +44,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
 from repro_torch.serving.scheduler import (EraScheduler, MultiCellScheduler,
                                            Schedule)
+from repro_torch.telemetry import spans
 
 
 @dataclass
@@ -64,64 +65,77 @@ def _np(x):
 def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
                      tokens_per_user, *, decode_steps=0
                      ) -> List[RequestResult]:
-    """Run one cell's scheduled admission round (steps 2–3 above).
-    ``tokens_per_user``: (U, S) integers (numpy or a tensor), one request
-    per user."""
+    """Run one cell's scheduled admission round (steps 2–3 above), the
+    ``serve.cell`` span (``telemetry.spans``).  ``tokens_per_user``: (U,
+    S) integers (numpy or a tensor), one request per user."""
     dev = params.embed.device
     tokens = torch.as_tensor(tokens_per_user).to(dev)
     dev_flops = prof.device_flops.tolist()
     edge_flops = prof.edge_flops.tolist()
     results: Dict[int, RequestResult] = {}
+    groups = sched.groups()
 
-    for split, users in sched.groups().items():
-        toks = tokens[torch.as_tensor(users, device=dev)]
-        x, positions = split_runtime.device_forward(params, cfg, toks, split)
-        crossing_bits = float(x[0].numel()) * x.element_size() * 8
-        logits = split_runtime.edge_forward(params, cfg, x, positions, split)
-        next_tok = _np(torch.argmax(logits[:, -1], -1))
-        del x, logits
+    with spans.span("serve.cell", groups=len(groups)):
+        for split, users in groups.items():
+            next_tok, crossing_bits = _split_group(params, cfg, tokens,
+                                                   split, users)
+            dev_fl = float(dev_flops[split])
+            edge_fl = float(edge_flops[split])
+            for row, u in enumerate(users):
+                r_up = max(float(sched.uplink_rate[u]), 1.0)
+                r_dn = max(float(sched.downlink_rate[u]), 1.0)
+                t_dev = dev_fl / netcfg.c_device_flops
+                t_up = (crossing_bits / r_up) if split < prof.n_layers \
+                    else 0.0
+                eff = lam(float(sched.compute_units[u]), netcfg) \
+                    * netcfg.c_min_flops
+                t_edge = edge_fl / eff
+                t_dn = (float(prof.result_bits) / r_dn) \
+                    if split < prof.n_layers else 0.0
+                results[int(u)] = RequestResult(
+                    user=int(u),
+                    tokens_out=next_tok[row:row + 1],
+                    latency_s=t_dev + t_up + t_edge + t_dn,
+                    t_device=t_dev, t_uplink=t_up,
+                    t_edge=t_edge, t_downlink=t_dn,
+                )
 
-        dev_fl = float(dev_flops[split])
-        edge_fl = float(edge_flops[split])
-        for row, u in enumerate(users):
-            r_up = max(float(sched.uplink_rate[u]), 1.0)
-            r_dn = max(float(sched.downlink_rate[u]), 1.0)
-            t_dev = dev_fl / netcfg.c_device_flops
-            t_up = (crossing_bits / r_up) if split < prof.n_layers \
-                else 0.0
-            eff = lam(float(sched.compute_units[u]), netcfg) \
-                * netcfg.c_min_flops
-            t_edge = edge_fl / eff
-            t_dn = (float(prof.result_bits) / r_dn) \
-                if split < prof.n_layers else 0.0
-            results[int(u)] = RequestResult(
-                user=int(u),
-                tokens_out=next_tok[row:row + 1],
-                latency_s=t_dev + t_up + t_edge + t_dn,
-                t_device=t_dev, t_uplink=t_up,
-                t_edge=t_edge, t_downlink=t_dn,
-            )
-
-    if decode_steps:
-        _continue_decode(params, cfg, tokens, results, decode_steps)
+        if decode_steps:
+            _continue_decode(params, cfg, tokens, results, decode_steps)
     return [results[u] for u in sorted(results)]
 
 
+def _split_group(params, cfg, tokens, split, users):
+    """One split group's forward, the ``serve.split_group`` span: the
+    device side on the group's rows, the edge side, and the first greedy
+    token's copy to the host.  Returns the tokens and the crossing
+    tensor's bits per user."""
+    with spans.span("serve.split_group", split=int(split), rows=len(users)):
+        toks = tokens[torch.as_tensor(users, device=tokens.device)]
+        x, positions = split_runtime.device_forward(params, cfg, toks, split)
+        crossing_bits = float(x[0].numel()) * x.element_size() * 8
+        logits = split_runtime.edge_forward(params, cfg, x, positions, split)
+        return _np(torch.argmax(logits[:, -1], -1)), crossing_bits
+
+
 def _continue_decode(params, cfg, tokens, results, n_steps):
-    """Greedy decode continuation on the edge (full model, cached)."""
+    """Greedy decode continuation on the edge (full model, cached): the
+    ``serve.prefill`` and ``serve.decode`` spans."""
     # sequence length is the LAST axis — multi-codebook models carry
     # (U, n_codebooks, S) tokens, where shape[1] would be n_codebooks
     s = tokens.shape[-1]
-    logits, caches, _ = T.prefill(params, cfg, tokens,
-                                  max_seq=s + n_steps + 1)
-    cur = torch.argmax(logits[:, -1], -1)
-    del logits
-    outs = [cur]
-    for step in range(n_steps - 1):
-        logits, caches = T.decode_step(params, cfg, cur, s + step, caches)
-        cur = torch.argmax(logits, -1)
-        outs.append(cur)
-    seq = _np(torch.stack(outs, 1))
+    with spans.span("serve.prefill"):
+        logits, caches, _ = T.prefill(params, cfg, tokens,
+                                      max_seq=s + n_steps + 1)
+        cur = torch.argmax(logits[:, -1], -1)
+        del logits
+    with spans.span("serve.decode", steps=n_steps - 1):
+        outs = [cur]
+        for step in range(n_steps - 1):
+            logits, caches = T.decode_step(params, cfg, cur, s + step, caches)
+            cur = torch.argmax(logits, -1)
+            outs.append(cur)
+        seq = _np(torch.stack(outs, 1))
     for u, r in results.items():
         r.tokens_out = seq[u]
 

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import era, ligd, network, noma, profiles
 from repro_torch.core.era import Weights
 from repro_torch.kernels.noma_rate.ops import uplink_rates_kernel
+from repro_torch.telemetry import spans
 
 
 def bucket_sizes(n_cells: int) -> List[int]:
@@ -407,8 +408,9 @@ class MultiCellScheduler:
                                 spec=self.spec, prep=self.prep,
                                 init_alloc=init_alloc)
         self.last_outcomes = list(outs)
-        return [build_schedule(scn, out)
-                for scn, out in zip(self.scns, outs)]
+        with spans.span("admission.build"):
+            return [build_schedule(scn, out)
+                    for scn, out in zip(self.scns, outs)]
 
     def _schedule_subset(self, q, cells: List[int], *, warm: bool,
                          init_alloc=None, bucket: str = None,
@@ -440,5 +442,6 @@ class MultiCellScheduler:
             self.last_outcomes = [None] * self.n_cells
         for j, c in enumerate(cells):              # real lanes only
             self.last_outcomes[c] = outs[j]
-        return [build_schedule(self.scns[c], outs[j])
-                for j, c in enumerate(cells)]
+        with spans.span("admission.build"):
+            return [build_schedule(self.scns[c], outs[j])
+                    for j, c in enumerate(cells)]

@@ -75,6 +75,16 @@ def test_async_mode_with_governor_trace_and_churn(tmp_path):
     for name in ("bootstrap", "admission_round", "serve_round", "cell_join",
                  "cell_leave", "schedule_swap", "qoe_attainment"):
         assert streams[name] > 0, name
+    # the spans of every round, on the profiler's clock
+    got = [e for e in events if e["event"] == "span"]
+    names = collections.Counter(e["span"] for e in got)
+    assert names["serve.round"] == 7
+    assert names["admission.round"] == streams["admission_round"]
+    for name in ("serve.cell", "serve.split_group", "serve.prefill",
+                 "serve.decode", "admission.drain", "solver.sweep",
+                 "solver.layer", "solver.finalize", "admission.swap"):
+        assert names[name] > 0, name
+    assert all(e["t1_ns"] >= e["t0_ns"] for e in got)
     # the warm-up round plus the six timed rounds
     assert streams["serve_round"] == 7
     assert int(rows["serve rounds"]) == 7

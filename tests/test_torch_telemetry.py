@@ -21,7 +21,7 @@ import pytest
 import torch
 
 import repro_torch.telemetry.bus as bus_mod
-from repro_torch.telemetry import Event, FileSink, TelemetryBus
+from repro_torch.telemetry import Event, FileSink, TelemetryBus, spans
 
 pytestmark = pytest.mark.telemetry
 
@@ -278,9 +278,11 @@ def test_round_error_event_and_bounded_backlog():
 
 
 def test_no_bus_path_touches_no_telemetry():
-    # the bus=None serving path must stay allocation-free w.r.t. the
-    # telemetry package: no Event, no ring, no sketch updates
+    # the bus=None serving path, spans off, must stay allocation-free
+    # w.r.t. the telemetry package: no Event, no ring, no sketch updates,
+    # no span
     cluster, ids, clock = _cluster(None)
+    assert not spans.recording()
     tracemalloc.start()
     try:
         clock.advance(1.0)
@@ -288,7 +290,8 @@ def test_no_bus_path_touches_no_telemetry():
         cluster.step()
         cluster.engine.round_snapshot()
         snap = tracemalloc.take_snapshot().filter_traces(
-            [tracemalloc.Filter(True, bus_mod.__file__)])
+            [tracemalloc.Filter(True, bus_mod.__file__),
+             tracemalloc.Filter(True, spans.__file__)])
         assert sum(s.size for s in snap.statistics("filename")) == 0
     finally:
         tracemalloc.stop()
