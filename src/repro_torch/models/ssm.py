@@ -116,13 +116,18 @@ def _out(params, cfg, y, z):
     return y @ params.out_proj
 
 
-def forward(params, cfg, x, impl="kernel"):
-    """Full-sequence SSD mixer. x (B,L,d) -> y (B,L,d)."""
-    l = x.shape[1]
+def check_whole_chunks(cfg, l):
+    """Refuse a sequence of length ``l`` that is not a whole number of SSD
+    chunks: ``forward`` needs it, ``prefill`` takes any length."""
     chunk = min(cfg.ssd_chunk, l)
     if l % chunk:
         raise ValueError(f"sequence length {l} is not a multiple of the "
                          f"SSD chunk {chunk}; prefill takes any length")
+
+
+def forward(params, cfg, x, impl="kernel"):
+    """Full-sequence SSD mixer. x (B,L,d) -> y (B,L,d)."""
+    check_whole_chunks(cfg, x.shape[1])
     z, _, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
     y, _ = _scan(params, cfg, xs, dt, A, B, C, impl)
     return _out(params, cfg, y, z)

@@ -6,7 +6,13 @@ Pipeline per admission round:
      on its users' tokens, the crossing activations are "transmitted" over
      the simulated NOMA link (latency = bits / scheduled rate), and the edge
      side runs as one batched forward per group
-  3. decode continues on the edge with the shared KV/state caches
+  3. decode continues on the edge from the KV/state caches that the split
+     groups' forward captured on the way, each group's rows placed at
+     their users' indices: the prompt runs once.  The one exception, a
+     model with an MoE FFN whose cell has more than one split group,
+     prefills the whole cell again (``transformer.prefill``): an expert's
+     capacity depends on which rows share a batch, so there the groups'
+     forward is not the whole cell's
 
 The radio and edge-compute times are simulated from the schedule and the
 split profile; the numerical path (device prefix -> crossing tensor ->
@@ -74,11 +80,21 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
     edge_flops = prof.edge_flops.tolist()
     results: Dict[int, RequestResult] = {}
     groups = sched.groups()
+    moe = any(ffn == "moe" for _, ffn in cfg.layer_specs)
+    # decode starts from the groups' caches (step 3), except where an MoE
+    # FFN sees other batches than the whole cell's.  Sequence length is
+    # the LAST axis — multi-codebook models carry (U, n_codebooks, S)
+    # tokens, where shape[1] would be n_codebooks
+    max_seq = tokens.shape[-1] + decode_steps + 1 \
+        if decode_steps and not (moe and len(groups) > 1) else None
+    starts = []
 
     with spans.span("serve.cell", groups=len(groups)):
         for split, users in groups.items():
-            next_tok, crossing_bits = _split_group(params, cfg, tokens,
-                                                   split, users)
+            next_tok, crossing_bits, start = _split_group(
+                params, cfg, tokens, split, users, max_seq)
+            if start is not None:
+                starts.append((users, *start))
             dev_fl = float(dev_flops[split])
             edge_fl = float(edge_flops[split])
             for row, u in enumerate(users):
@@ -101,34 +117,112 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
                 )
 
         if decode_steps:
-            _continue_decode(params, cfg, tokens, results, decode_steps)
+            _continue_decode(params, cfg,
+                             _decode_start(params, cfg, tokens, starts,
+                                           decode_steps),
+                             results, decode_steps)
     return [results[u] for u in sorted(results)]
 
 
-def _split_group(params, cfg, tokens, split, users):
+def _split_group(params, cfg, tokens, split, users, max_seq=None):
     """One split group's forward, the ``serve.split_group`` span: the
     device side on the group's rows, the edge side, and the first greedy
-    token's copy to the host.  Returns the tokens and the crossing
-    tensor's bits per user."""
+    token's copy to the host.  Returns the tokens, the crossing tensor's
+    bits per user and, with ``max_seq``, the group's part of decode's
+    start: its first tokens on the device and each block's decode cache,
+    captured by both sides as they run (``split_runtime``); else None."""
     with spans.span("serve.split_group", split=int(split), rows=len(users)):
         toks = tokens[torch.as_tensor(users, device=tokens.device)]
-        x, positions = split_runtime.device_forward(params, cfg, toks, split)
-        crossing_bits = float(x[0].numel()) * x.element_size() * 8
-        logits = split_runtime.edge_forward(params, cfg, x, positions, split)
-        return _np(torch.argmax(logits[:, -1], -1)), crossing_bits
+        caches = None if max_seq is None else []
+        logits, crossing_bits = split_runtime.split_inference(
+            params, cfg, toks, split, max_seq=max_seq, caches=caches)
+        first = torch.argmax(logits[:, -1], -1)
+        start = None if caches is None else (first, caches)
+        return _np(first), crossing_bits / len(users), start
 
 
-def _continue_decode(params, cfg, tokens, results, n_steps):
-    """Greedy decode continuation on the edge (full model, cached): the
-    ``serve.prefill`` and ``serve.decode`` spans."""
-    # sequence length is the LAST axis — multi-codebook models carry
-    # (U, n_codebooks, S) tokens, where shape[1] would be n_codebooks
-    s = tokens.shape[-1]
-    with spans.span("serve.prefill"):
-        logits, caches, _ = T.prefill(params, cfg, tokens,
-                                      max_seq=s + n_steps + 1)
-        cur = torch.argmax(logits[:, -1], -1)
-        del logits
+@dataclass
+class DecodeStart:
+    """Where a cell's greedy decode begins: the prompt ``tokens`` (U, S)
+    or (U, n_codebooks, S), each row's ``first`` generated token on the
+    device, and every block's decode ``caches``.  Rows index as on the
+    tokens: ``start[rows]`` is those rows' start (views of the caches'
+    rows; an attention cache's ``pos``, which every row shares, copied, so
+    that each part decodes on its own)."""
+    tokens: torch.Tensor
+    first: torch.Tensor
+    caches: List[dict]
+
+    @property
+    def shape(self):
+        return self.tokens.shape
+
+    def __getitem__(self, rows):
+        return DecodeStart(
+            self.tokens[rows], self.first[rows],
+            [{k: v.clone() if k == "pos" else v[rows] for k, v in c.items()}
+             for c in self.caches])
+
+
+def _decode_start(params, cfg, tokens, starts, n_steps) -> DecodeStart:
+    """Decode's start for every row of the cell, the ``serve.prefill``
+    span: from the split groups' ``(users, first tokens, caches)``
+    (``_split_group``), or, with none, by ``transformer.prefill`` over
+    the cell.  The span's fields count the rows each way: ``reused_rows``,
+    ``prefilled_rows``."""
+    n_users = tokens.shape[0]
+    reused = sum(len(users) for users, _, _ in starts)
+    with spans.span("serve.prefill", reused_rows=reused,
+                    prefilled_rows=n_users - reused):
+        if starts:
+            first, caches = _merge_starts(starts, n_users)
+        else:
+            logits, caches, _ = T.prefill(
+                params, cfg, tokens, max_seq=tokens.shape[-1] + n_steps + 1)
+            first = torch.argmax(logits[:, -1], -1)
+            del logits
+    return DecodeStart(tokens, first, caches)
+
+
+def _merge_starts(starts, n_users):
+    """The cell's first tokens and decode caches from its split groups'
+    ``(users, first tokens, caches)``: each row placed at its user's
+    index, the attention caches' shared ``pos`` taken once (every prompt
+    of a round has one length).  One group holding every user in order
+    passes through uncopied.  Empties ``starts``, so that each layer of
+    the groups' caches is let go as soon as it is merged."""
+    users0, first0, caches0 = starts[0]
+    if len(starts) == 1 and np.array_equal(users0, np.arange(n_users)):
+        starts.clear()
+        return first0, caches0
+    rows = [torch.as_tensor(users, device=first0.device)
+            for users, _, _ in starts]
+
+    def place(parts):
+        out = parts[0].new_empty((n_users,) + tuple(parts[0].shape[1:]))
+        for idx, part in zip(rows, parts):
+            out.index_copy_(0, idx, part)
+        return out
+
+    first = place([f for _, f, _ in starts])
+    group_caches = [c for _, _, c in starts]
+    starts.clear()
+    merged = []
+    for layer in range(len(caches0)):
+        parts = [c[layer] for c in group_caches]
+        for c in group_caches:
+            c[layer] = None
+        merged.append({k: v if k == "pos" else place([p[k] for p in parts])
+                       for k, v in parts[0].items()})
+    return first, merged
+
+
+def _continue_decode(params, cfg, start, results, n_steps):
+    """Greedy decode continuation on the edge (full model, cached) from
+    ``start`` (a ``DecodeStart``), the ``serve.decode`` span: the further
+    steps, then each user's tokens into its result."""
+    s = start.shape[-1]
+    cur, caches = start.first, start.caches
     with spans.span("serve.decode", steps=n_steps - 1):
         outs = [cur]
         for step in range(n_steps - 1):
