@@ -54,7 +54,8 @@ class ModelConfig:
     # MoE
     n_experts: int = 0
     top_k: int = 0
-    capacity_factor: float = 1.25
+    # None: dropless (every route computed; ``models/moe.py``)
+    capacity_factor: Optional[float] = 1.25
     # runtime knob (not an architecture property): number of independent
     # dispatch groups; the distributed layer sets it to the data-axis size
     # so routing scatters stay shard-local (GShard per-device capacity)

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN with capacity-based scatter dispatch (GShard).
+"""Mixture-of-Experts FFN: capacity-based scatter dispatch (GShard), or
+dropless (``cfg.capacity_factor`` None).
 
 Top-k routing -> exclusive cumsum position-in-expert -> scatter of the kept
 (token, slot) rows into a (G, E, C, d) capacity buffer -> batched expert
@@ -24,6 +25,23 @@ choices made explicit for torch:
 No hand-written kernel backs this module: the expert FFN is
 ``torch.einsum`` batched over E on (G, E, C, d) and ``common.activate``.
 
+Dropless (``capacity_factor=None``, how Mixtral is served): the same
+routing, then the T·k routes ordered by expert (a stable sort, so each
+expert's rows keep their token order), each expert's SwiGLU on its own
+rows alone through ``torch._grouped_mm`` (offsets on the device: no host
+sync, nothing padded), and the rows put back in token-major slot order
+and summed with their gates in that fixed order.  No route is dropped,
+so a token's output does not depend on the other tokens of its batch.
+It runs on plain tensors only: training and the sharded path keep the
+capacity dispatch.
+
+Each call is a ``moe`` span (``telemetry.spans``) with ``tokens``,
+``routed_rows`` (T·k), ``experts_hit``, ``max_expert_rows`` and
+``dropped_rows``; the last three stay device tensors until the spans are
+read, so a traced call adds no host sync.  ``DROPPED_ROUTES`` counts,
+on the device, the routes the capacity path drops (the dropless path
+adds nothing); its ``read()`` syncs.
+
 ``constrain`` is the distributed layer's sharding hook, called under
 JAX's names (``moe_groups``, ``moe_buf``, ``moe_buf_expert``).  On
 DTensors the routing, scatter and gather run on each rank's own groups
@@ -42,6 +60,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.models.common import (Params, activate, dense_init,
                                        dtype_of, no_constrain)
 from repro_torch.models.ffn import is_gated
+from repro_torch.telemetry import spans
 
 # expert-FFN capacity chunk: bounds the (G, E, Cc, d_ff) hidden buffers of
 # very long prefills
@@ -61,6 +80,38 @@ def init(generator, cfg, device):
         p["w_gate"] = dense_init(generator, (e, d, f), dt, device,
                                  in_axis_size=d)
     return Params(**p)
+
+
+class RouteCounter:
+    """A running count of dropped routes, one int64 tensor on each device
+    it was given counts on; nothing is read until ``read``."""
+
+    def __init__(self):
+        self._by_device = {}
+
+    def add(self, n):
+        """Add the count ``n`` (a 0-d integer tensor) on its device."""
+        t = self._by_device.get(n.device)
+        if t is None:
+            self._by_device[n.device] = n.to(torch.int64).clone()
+        else:
+            t.add_(n)
+
+    def read(self) -> int:
+        """The count over every device (one sync each)."""
+        return sum(int(t) for t in self._by_device.values())
+
+    def reset(self):
+        self._by_device.clear()
+
+
+# routes dropped past an expert's capacity in this process
+DROPPED_ROUTES = RouteCounter()
+
+
+def dropless(cfg) -> bool:
+    """True where every route is computed: ``capacity_factor`` None."""
+    return cfg.capacity_factor is None
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -154,6 +205,7 @@ def _dispatch(router, cfg, xg, cap):
         ks = torch.arange(tk, device=keep.device).repeat(g)
     else:
         kg, ks = torch.nonzero(keep, as_tuple=True)
+        DROPPED_ROUTES.add(torch.sum(~keep))
     buf = torch.zeros((g, cfg.n_experts, cap, d), dtype=xg.dtype,
                       device=xg.device)
     buf[kg, flat_e[kg, ks], pos[kg, ks]] = xg[kg, ks // cfg.top_k]
@@ -202,20 +254,77 @@ def _combine(cfg, out_buf, info, cap):
 
 
 def forward(params, cfg, x, constrain=no_constrain):
-    """x (B, S, d) -> (y, aux_loss)."""
+    """x (B, S, d) -> (y, aux_loss); the ``moe`` span (module docs)."""
     b, s, d = x.shape
-    g = groups(cfg, b * s)
-    tl = b * s // g
-    cap = capacity(cfg, tl)
-    xg = constrain(x.reshape(g, tl, d), "moe_groups")
-    if isinstance(xg, DTensor):
-        y, aux = _forward_sharded(params, cfg, xg, cap, constrain, b)
-        return y.reshape(b, s, d), aux
-    buf, info, me, ce = _dispatch(params.router, cfg, xg, cap)
-    out_buf = _experts(params, cfg, buf, cap, constrain)
-    del buf
-    y = _combine(cfg, out_buf, info, cap)
-    return y.reshape(b, s, d), cfg.n_experts * torch.sum(me * ce)
+    with spans.span("moe", tokens=b * s,
+                    routed_rows=b * s * cfg.top_k) as sp:
+        if dropless(cfg):
+            if isinstance(x, DTensor):
+                raise ValueError("the dropless MoE runs on plain tensors; "
+                                 "a mesh takes the capacity dispatch "
+                                 "(capacity_factor set)")
+            y, aux = _forward_dropless(params, cfg, x.reshape(b * s, d),
+                                       sp)
+            return y.reshape(b, s, d), aux
+        g = groups(cfg, b * s)
+        tl = b * s // g
+        cap = capacity(cfg, tl)
+        xg = constrain(x.reshape(g, tl, d), "moe_groups")
+        if isinstance(xg, DTensor):
+            y, aux = _forward_sharded(params, cfg, xg, cap, constrain, b)
+            return y.reshape(b, s, d), aux
+        buf, info, me, ce = _dispatch(params.router, cfg, xg, cap)
+        if sp and not xg.is_meta:
+            flat_e, _, keep, _ = info
+            rows = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                               device=keep.device)
+            rows.scatter_add_(0, flat_e.reshape(-1),
+                              keep.reshape(-1).to(torch.int64))
+            _count(sp, rows, torch.sum(~keep))
+        out_buf = _experts(params, cfg, buf, cap, constrain)
+        del buf
+        y = _combine(cfg, out_buf, info, cap)
+        return y.reshape(b, s, d), cfg.n_experts * torch.sum(me * ce)
+
+
+def _count(sp, rows, dropped=0):
+    """The span's device-side counts from the rows each expert computes:
+    experts with a row, the most rows an expert computes, the routes
+    dropped."""
+    sp.set(experts_hit=torch.count_nonzero(rows), max_expert_rows=rows.max(),
+           dropped_rows=dropped)
+
+
+def _forward_dropless(params, cfg, x, sp):
+    """x (T, d) -> (y (T, d), aux): every route computed (module docs)."""
+    t, d = x.shape
+    k = cfg.top_k
+    idx, gate, me, ce = _route(params.router, cfg, x)      # (T, k)
+    experts, order = torch.sort(idx.reshape(-1), stable=True)
+    # where each expert's rows end (``bincount`` would read its input's
+    # largest value to the host)
+    ends = torch.searchsorted(experts, torch.arange(
+        cfg.n_experts, device=x.device), right=True, out_int32=True)
+    if sp:
+        _count(sp, torch.diff(ends, prepend=ends.new_zeros(1)))
+    out = _grouped_ffn(params, cfg, x[order // k], ends)
+    slots = torch.empty_like(out).index_copy_(0, order, out)
+    y = (slots.view(t, k, d) * gate.to(x.dtype)[..., None]).sum(dim=1)
+    return y, cfg.n_experts * torch.sum(me * ce)
+
+
+def _grouped_ffn(params, cfg, rows, ends):
+    """Each expert's FFN on its own rows: ``rows`` (R, d) sorted by
+    expert, expert e's rows ending at ``ends[e]`` (int32, on the device).
+    Returns (R, d)."""
+    mm = lambda a, w: torch._grouped_mm(a, w, offs=ends)
+    h_lin = mm(rows, params.w_in)
+    if is_gated(cfg.activation):
+        h = activate(mm(rows, params.w_gate), h_lin, cfg.activation)
+    else:
+        h = activate(h_lin, h_lin, cfg.activation)
+    del h_lin
+    return mm(h, params.w_out)
 
 
 def _forward_sharded(params, cfg, xg, cap, constrain, batch):

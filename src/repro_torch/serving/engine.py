@@ -9,10 +9,12 @@ Pipeline per admission round:
   3. decode continues on the edge from the KV/state caches that the split
      groups' forward captured on the way, each group's rows placed at
      their users' indices: the prompt runs once.  The one exception, a
-     model with an MoE FFN whose cell has more than one split group,
-     prefills the whole cell again (``transformer.prefill``): an expert's
-     capacity depends on which rows share a batch, so there the groups'
-     forward is not the whole cell's
+     model with a capacity-bound MoE FFN whose cell has more than one
+     split group, prefills the whole cell again (``transformer.prefill``):
+     an expert's capacity depends on which rows share a batch, so there
+     the groups' forward is not the whole cell's.  A dropless MoE
+     (``capacity_factor=None``) computes each row on its own and reuses
+     the groups' caches like every other FFN
 
 The radio and edge-compute times are simulated from the schedule and the
 split profile; the numerical path (device prefix -> crossing tensor ->
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.era import lam
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
 from repro_torch.serving.scheduler import (EraScheduler, MultiCellScheduler,
@@ -80,13 +83,14 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
     edge_flops = prof.edge_flops.tolist()
     results: Dict[int, RequestResult] = {}
     groups = sched.groups()
-    moe = any(ffn == "moe" for _, ffn in cfg.layer_specs)
-    # decode starts from the groups' caches (step 3), except where an MoE
-    # FFN sees other batches than the whole cell's.  Sequence length is
-    # the LAST axis — multi-codebook models carry (U, n_codebooks, S)
-    # tokens, where shape[1] would be n_codebooks
+    capacity_moe = not moe.dropless(cfg) and any(
+        ffn == "moe" for _, ffn in cfg.layer_specs)
+    # decode starts from the groups' caches (step 3), except where a
+    # capacity-bound MoE FFN sees other batches than the whole cell's.
+    # Sequence length is the LAST axis — multi-codebook models carry (U,
+    # n_codebooks, S) tokens, where shape[1] would be n_codebooks
     max_seq = tokens.shape[-1] + decode_steps + 1 \
-        if decode_steps and not (moe and len(groups) > 1) else None
+        if decode_steps and not (capacity_moe and len(groups) > 1) else None
     starts = []
 
     with spans.span("serve.cell", groups=len(groups)):

@@ -8,9 +8,12 @@ innermost span open in the same thread when it opened) and its trace id
 (a root's own id unless the root names one; a child takes its parent's),
 ``t0_ns`` and ``t1_ns``, its ``fields``, and on CUDA ``device_s``.
 Fields may be set while the span is open (``set``, ``add``), so counts
-known only at close go in; ``add(**counts)`` at module level adds to the
-innermost open span of the calling thread, which is how the solver's
-counters reach the span of the layer that ran them.
+known only at close go in.  A field may be a tensor (a count kept on the
+device): it becomes a Python number where the span is read
+(``finished``, or the bus's ``span`` event), never while the work runs.
+``add(**counts)`` at module level adds to the innermost open span of the
+calling thread, which is how the solver's counters reach the span of the
+layer that ran them.
 
 One clock with the device trace: ``t0_ns`` and ``t1_ns`` are
 ``time.time_ns()``, the clock of ``kineto_results.trace_start_ns()`` and
@@ -31,9 +34,10 @@ records spans without any other switch.  It looks only when a span
 opens: a span opened while it records is always closed and kept.  Off,
 ``span`` returns one shared no-op context after that check, and nothing
 is allocated.  ``enable(bus)`` also emits each finished span on the
-bus's ``span`` stream (host times and fields; ``device_s`` is read by
-``finished`` alone), which is how ``launch/serve.py --trace`` writes them
-to its JSONL.
+bus's ``span`` stream (host times and fields, tensor fields settled
+there, which waits for the device; ``device_s`` is read by ``finished``
+alone), which is how ``launch/serve.py --trace`` writes them to its
+JSONL.
 
 Finished spans go into a bounded ring (``CAPACITY``); ``finished()``
 returns them, oldest first, and ``clear()`` empties it.
@@ -91,6 +95,13 @@ class Span:
     @property
     def wall_s(self) -> float:
         return (self.t1_ns - self.t0_ns) / 1e9
+
+    def settle(self) -> None:
+        """Tensor fields to Python numbers (waits for their device)."""
+        f = self.fields
+        for k, v in f.items():
+            if isinstance(v, torch.Tensor):
+                f[k] = v.item()
 
     def as_dict(self) -> Dict:
         return dict(self.fields, span=self.name, span_id=self.span_id,
@@ -235,6 +246,8 @@ class Tracer:
         with self._lock:
             self._ring.append(sp)
             buses = tuple(self._buses)
+        if buses:
+            sp.settle()
         for bus in buses:
             bus.emit("span", **sp.as_dict())
 
@@ -253,10 +266,12 @@ class Tracer:
     # ---- consumer side --------------------------------------------------
     def finished(self) -> List[Span]:
         """The retained finished spans, oldest first, each CUDA span's
-        ``device_s`` read from its events (waiting for its close event)."""
+        ``device_s`` read from its events (waiting for its close event) and
+        its tensor fields settled."""
         with self._lock:
             out = list(self._ring)
         for sp in out:
+            sp.settle()
             ev = sp._events
             if ev is None:
                 continue
