@@ -74,7 +74,9 @@ MAX_RUNNERS = 16
 
 _RUNNERS: "OrderedDict[tuple, SweepRunner]" = OrderedDict()
 _CACHE_LOCK = threading.Lock()       # _RUNNERS, _DEVICE_LOCKS, _POOLS
-_CAPTURE_LOCK = threading.Lock()     # one capture at a time in the process
+# one capture at a time in the process (the serving engine's decode graph
+# takes it too)
+CAPTURE_LOCK = threading.Lock()
 _DEVICE_LOCKS: dict = {}
 _POOLS: dict = {}
 
@@ -198,7 +200,7 @@ class SweepRunner:
                     era_step_kernel.thread_launches()[0] - ran))
                 graph = torch.cuda.CUDAGraph()
                 recorded = era_step_kernel.thread_launches()[1]
-                with _CAPTURE_LOCK:
+                with CAPTURE_LOCK:
                     with torch.cuda.graph(graph, pool=_pool(dev), stream=side,
                                           capture_error_mode="thread_local"):
                         self._steps(n)

@@ -12,7 +12,8 @@ dtype, the final state (Bt, H, P, N) in the math's type.
 ``ssd_chunked`` evaluates the scan with the SSD block decomposition
 (intra-chunk quadratic term + inter-chunk recurrence), the algorithm the
 kernel implements; ``ssd_sequential`` is the step-by-step recurrence that
-checks both; ``ssd_decode_step`` is one token against a carried state.
+checks both; ``ssd_decode_step`` is one token against a carried state
+(``ssd_decode_step_`` the same with the state updated in place).
 Unlike the JAX oracle, ``ssd_chunked`` takes an L that is not a multiple
 of ``chunk``: the last chunk is padded with dt = 0 (and x = B = C = 0),
 whose rows decay by exactly 1 and add exactly 0 to the state, so the
@@ -120,12 +121,19 @@ def ssd_decode_step(x, dt, A, B, C, D, state):
     """Single-token recurrent update.
 
     x (Bt, H, P); dt (Bt, H); B, C (Bt, N); state (Bt, H, P, N).
-    Returns y (Bt, H, P), new state."""
+    Returns y (Bt, H, P), new state (``state`` is left as it was)."""
+    state = state.to(_up(x).dtype, copy=True)
+    return ssd_decode_step_(x, dt, A, B, C, D, state), state
+
+
+def ssd_decode_step_(x, dt, A, B, C, D, state):
+    """``ssd_decode_step`` with ``state`` (in the math's dtype) updated in
+    place: the same products and sums, in the same order.  Returns y."""
     xf, dtf = _up(x), _up(dt)
     decay = torch.exp(dtf * _up(A))[:, :, None, None]
     upd = dtf[:, :, None, None] * xf[:, :, :, None] \
         * _up(B)[:, None, None, :]
-    state = decay * state.to(xf.dtype) + upd
+    state.mul_(decay).add_(upd)
     y = torch.einsum("bhpn,bn->bhp", state, _up(C))
     y = y + xf * _up(D)[None, :, None]
-    return y.to(x.dtype), state
+    return y.to(x.dtype)

@@ -258,20 +258,32 @@ def init_cache(cfg, batch, max_seq, mixer="attn", dtype=None, *, device):
 
 def decode_step(params, cfg, x, pos, cache, mixer="attn",
                 constrain=no_constrain):
-    """x (B,1,D); pos: the token's absolute position (an int).  Returns
-    (y, cache); the cache is updated in place (the decode loop owns it)."""
+    """x (B,1,D); pos: the token's absolute position, a 0-d int64 tensor
+    on x's device (an int is taken too).  Returns (y, cache); the cache is
+    updated in place (the decode loop owns it).  Off a mesh nothing here
+    reads the position on the host: its rotary positions, its ring slot
+    and the mask of valid keys are tensors computed from it, so that a
+    CUDA graph that captured the step replays it at whatever position
+    ``pos`` holds."""
     b = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    pos = int(pos)
+    # DTensor keeps no sequence-sharded layout through an indexed in-place
+    # write: a step on a mesh (never captured) writes at a host slot
+    host = int(pos) if isinstance(cache["k"], DTensor) else None
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     shape = (b, 3, 1) if cfg.mrope_sections is not None else (b, 1)
-    positions = torch.full(shape, pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos.expand(shape))
 
     size = cache["k"].shape[1]
-    idx = pos % size
-    cache["k"][:, idx] = k_new[:, 0]
-    cache["v"][:, idx] = v_new[:, 0]
-    cache["pos"][idx] = pos
+    if host is None:
+        slot = (pos % size).view(1)
+        cache["k"].index_copy_(1, slot, k_new)
+        cache["v"].index_copy_(1, slot, v_new)
+        cache["pos"].index_copy_(0, slot, pos.view(1))
+    else:
+        cache["k"][:, host % size] = k_new[:, 0]
+        cache["v"][:, host % size] = v_new[:, 0]
+        cache["pos"][host % size] = host
 
     cpos = cache["pos"]
     window = cfg.window if mixer == "local" else 0

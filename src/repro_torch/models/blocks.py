@@ -120,7 +120,9 @@ def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel",
 
 
 def decode(params, cfg, spec, x, pos, cache, constrain=no_constrain):
-    """Single-token step. x (B,1,D); pos: the absolute position (int)."""
+    """Single-token step. x (B,1,D); pos: the absolute position, a 0-d
+    int64 tensor on x's device (or an int).  The cache is updated in
+    place and comes back as the same dict of the same tensors."""
     mixer, _ = spec
     h = _norm(cfg, x, params.norm1)
     if mixer in ("attn", "local"):

@@ -2,6 +2,7 @@
 activations, RoPE / M-RoPE and default positions."""
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -169,6 +170,14 @@ def rope_freqs(head_dim, theta):
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim, theta, device):
+    """``rope_freqs`` as a tensor on ``device``, copied there once: a copy
+    from the host inside a captured CUDA graph would wait for the device,
+    which a capture refuses."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), device=device)
+
+
 def _rotate(x, angles):
     """Rotate the two halves of x's last axis by ``angles`` (..., S, 1,
     half), in float32, and cast back."""
@@ -181,7 +190,7 @@ def _rotate(x, angles):
 
 def apply_rope(x, positions, theta):
     """x: (..., S, H, D); positions: broadcastable to (..., S) integers."""
-    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta), device=x.device)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs       # (..., S, half)
     return _rotate(x, angles[..., None, :])
 
@@ -195,7 +204,7 @@ def apply_mrope(x, positions, theta, sections):
     half = x.shape[-1] // 2
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
-    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta), device=x.device)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     parts, start = [], 0
     for j, sec in enumerate(sections):
         pos_j = positions[..., j, :]                    # (..., S)

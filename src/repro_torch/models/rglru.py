@@ -17,8 +17,8 @@ says ``"pallas"``; any other ``impl`` runs the plain associative scan
 (``ref.linear_scan_associative``, the counterpart of JAX's
 ``jax.lax.associative_scan``), which autograd differentiates: training
 takes it, since the kernel refuses inputs that require grad.  ``prefill``
-and serving keep the kernel.  Decode is a single fused step.  Recurrence
-math in float32.
+and serving keep the kernel.  Decode is a single step that updates its
+cache in place.  Recurrence math in float32.
 """
 from __future__ import annotations
 
@@ -121,7 +121,9 @@ def init_cache(cfg, batch, dtype=None, *, device):
 
 
 def decode_step(params, cfg, x, cache):
-    """x (B,1,d) -> (y (B,1,d), cache)."""
+    """x (B,1,d) -> (y (B,1,d), cache).  The cache's ``conv`` and ``h``
+    are updated in place and come back as the same tensors (a captured
+    step reads and writes the same memory on every replay)."""
     xr1 = (x @ params.proj_rec)[:, 0]                      # (B, dr)
     hist = torch.cat([cache["conv"], xr1[:, None, :]], dim=1)
     conv_out = torch.einsum("bwr,wr->br", hist, params.conv_w) + params.conv_b
@@ -131,4 +133,6 @@ def decode_step(params, cfg, x, cache):
     h = a * cache["h"] + b
     y = (h * gate).to(x.dtype)
     y = (y @ params.out_proj)[:, None, :]
-    return y, {"conv": hist[:, 1:, :], "h": h}
+    cache["conv"].copy_(hist[:, 1:, :])
+    cache["h"].copy_(h)
+    return y, cache

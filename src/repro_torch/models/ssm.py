@@ -8,8 +8,8 @@ chunked version on a CPU one); any other ``impl`` takes the plain
 reference in the JAX package.  ``forward`` needs L to be a multiple of
 ``min(ssd_chunk, L)``, as the JAX forward does; ``prefill`` takes any L
 (the chunked scan masks a ragged last chunk).  Decode is one recurrent
-step (``ref.ssd_decode_step``).  SSD math in float32; y rounds to the
-activations' dtype before the gate.
+step (``ref.ssd_decode_step_``, the cache updated in place).  SSD math
+in float32; y rounds to the activations' dtype before the gate.
 """
 from __future__ import annotations
 
@@ -162,7 +162,10 @@ def init_cache(cfg, batch, dtype=None, *, device):
 
 
 def decode_step(params, cfg, x, cache):
-    """x (B,1,d) -> (y (B,1,d), cache)."""
+    """x (B,1,d) -> (y (B,1,d), cache).  The cache's ``conv`` and
+    ``state`` are updated in place and come back as the same tensors, so
+    that a step captured in a CUDA graph reads and writes the same memory
+    on every replay."""
     b = x.shape[0]
     di, n, h, _ = _dims(cfg)
     z, xbc, dt_raw = _split(cfg, x @ params.in_proj)        # (B,1,...)
@@ -175,7 +178,6 @@ def decode_step(params, cfg, x, cache):
     C = conv_out[:, di + n:]
     dt = F.softplus(dt_raw[:, 0].float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    y, state = ssd_ref.ssd_decode_step(xs, dt, A, B, C, params.D,
-                                       cache["state"])
-    return _out(params, cfg, y[:, None], z), {"conv": hist[:, 1:, :],
-                                              "state": state}
+    y = ssd_ref.ssd_decode_step_(xs, dt, A, B, C, params.D, cache["state"])
+    cache["conv"].copy_(hist[:, 1:, :])
+    return _out(params, cfg, y[:, None], z), cache

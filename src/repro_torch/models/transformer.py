@@ -197,8 +197,12 @@ def decode_step(params, cfg, tokens, pos, caches, constrain=no_constrain):
     """One decode step.
 
     tokens: (B,) integers (or (B,K) for multi-codebook); pos: the absolute
-    position of this token.  Returns (logits (B, V...), caches); attention
-    caches are updated in place."""
+    position of this token, a 0-d int64 tensor on the model's device (or
+    an int).  Returns (logits (B, V...), caches); every cache is updated in
+    place and comes back as the same tensors, and no value is read on the
+    host (but by a capacity-bound MoE's dispatch), so one step can be
+    captured in a CUDA graph and replayed at the position ``pos`` holds
+    (``serving.engine``)."""
     if cfg.n_codebooks > 1:
         x = embed_tokens(params, cfg, tokens[:, :, None])    # (B,1,d)
     else:

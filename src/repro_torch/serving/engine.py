@@ -14,7 +14,12 @@ Pipeline per admission round:
      an expert's capacity depends on which rows share a batch, so there
      the groups' forward is not the whole cell's.  A dropless MoE
      (``capacity_factor=None``) computes each row on its own and reuses
-     the groups' caches like every other FFN
+     the groups' caches like every other FFN.  On a card, a model whose
+     blocks have no MoE FFN decodes by replaying one step captured as a
+     CUDA graph (``DecodeGraph``, kept across rounds and cells of one
+     shape): the groups' caches go into the graph's buffers as the
+     blocks make them, and the step reads its position on the device;
+     an MoE model, and any model on the CPU, decodes step by step
 
 The radio and edge-compute times are simulated from the schedule and the
 split profile; the numerical path (device prefix -> crossing tensor ->
@@ -41,13 +46,16 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.era import lam
+from repro_torch.core.sweep_graph import CAPTURE_LOCK
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
@@ -91,12 +99,14 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
     # n_codebooks, S) tokens, where shape[1] would be n_codebooks
     max_seq = tokens.shape[-1] + decode_steps + 1 \
         if decode_steps and not (capacity_moe and len(groups) > 1) else None
+    graph = None if max_seq is None else _decode_graph(
+        params, cfg, tokens.shape[0], max_seq)
     starts = []
 
     with spans.span("serve.cell", groups=len(groups)):
         for split, users in groups.items():
             next_tok, crossing_bits, start = _split_group(
-                params, cfg, tokens, split, users, max_seq)
+                params, cfg, tokens, split, users, max_seq, graph)
             if start is not None:
                 starts.append((users, *start))
             dev_fl = float(dev_flops[split])
@@ -128,16 +138,21 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
     return [results[u] for u in sorted(results)]
 
 
-def _split_group(params, cfg, tokens, split, users, max_seq=None):
+def _split_group(params, cfg, tokens, split, users, max_seq=None,
+                 graph=None):
     """One split group's forward, the ``serve.split_group`` span: the
     device side on the group's rows, the edge side, and the first greedy
     token's copy to the host.  Returns the tokens, the crossing tensor's
     bits per user and, with ``max_seq``, the group's part of decode's
     start: its first tokens on the device and each block's decode cache,
-    captured by both sides as they run (``split_runtime``); else None."""
+    captured by both sides as they run (``split_runtime``), or, given a
+    decode ``graph``, the sink that put each cache into the graph's
+    buffers at the group's rows; else None."""
     with spans.span("serve.split_group", split=int(split), rows=len(users)):
-        toks = tokens[torch.as_tensor(users, device=tokens.device)]
-        caches = None if max_seq is None else []
+        rows = torch.as_tensor(users, device=tokens.device)
+        toks = tokens[rows]
+        caches = None if max_seq is None else \
+            [] if graph is None else _CacheSink(graph, rows)
         logits, crossing_bits = split_runtime.split_inference(
             params, cfg, toks, split, max_seq=max_seq, caches=caches)
         first = torch.argmax(logits[:, -1], -1)
@@ -193,9 +208,17 @@ def _merge_starts(starts, n_users):
     ``(users, first tokens, caches)``: each row placed at its user's
     index, the attention caches' shared ``pos`` taken once (every prompt
     of a round has one length).  One group holding every user in order
-    passes through uncopied.  Empties ``starts``, so that each layer of
-    the groups' caches is let go as soon as it is merged."""
+    passes through uncopied.  Groups whose caches went into a decode
+    graph's buffers as they were made (``_CacheSink``) place their first
+    tokens there too.  Empties ``starts``, so that each layer of the
+    groups' caches is let go as soon as it is merged."""
     users0, first0, caches0 = starts[0]
+    if isinstance(caches0, _CacheSink):
+        graph = caches0.graph
+        for _, first, sink in starts:
+            graph.tokens.index_copy_(0, sink.rows, first)
+        starts.clear()
+        return graph.tokens, graph.caches
     if len(starts) == 1 and np.array_equal(users0, np.arange(n_users)):
         starts.clear()
         return first0, caches0
@@ -224,18 +247,164 @@ def _merge_starts(starts, n_users):
 def _continue_decode(params, cfg, start, results, n_steps):
     """Greedy decode continuation on the edge (full model, cached) from
     ``start`` (a ``DecodeStart``), the ``serve.decode`` span: the further
-    steps, then each user's tokens into its result."""
+    steps, then each user's tokens into its result.  The steps replay a
+    ``DecodeGraph`` where ``_decode_graph`` gives one, else run eagerly;
+    the span's fields: ``steps``, ``graphed``, and the graph's
+    ``captures`` and ``replays`` in it."""
     s = start.shape[-1]
-    cur, caches = start.first, start.caches
-    with spans.span("serve.decode", steps=n_steps - 1):
-        outs = [cur]
-        for step in range(n_steps - 1):
-            logits, caches = T.decode_step(params, cfg, cur, s + step, caches)
-            cur = torch.argmax(logits, -1)
-            outs.append(cur)
-        seq = _np(torch.stack(outs, 1))
+    graph = _decode_graph(params, cfg, start.shape[0], s + n_steps + 1)
+    with spans.span("serve.decode", steps=n_steps - 1,
+                    graphed=graph is not None, captures=0, replays=0):
+        if graph is None:
+            seq = _decode_eagerly(params, cfg, start, n_steps)
+        else:
+            seq = graph.run(params, cfg, start, n_steps)
     for u, r in results.items():
         r.tokens_out = seq[u]
+
+
+def _step(params, cfg, tokens, pos, caches, out):
+    """One greedy decode step on buffers that it updates in place: the
+    ``tokens`` at position ``pos`` (0-d, on the device) through
+    ``transformer.decode_step``, their argmax written back to ``tokens``
+    and to ``out`` (rows, positions) at the next position, ``pos``
+    advanced.  It reads nothing on the host, so it is the step a
+    ``DecodeGraph`` captures."""
+    logits, _ = T.decode_step(params, cfg, tokens, pos, caches)
+    nxt = torch.argmax(logits, -1)
+    tokens.copy_(nxt)
+    pos.add_(1)
+    out.index_copy_(1, pos.view(1), nxt.unsqueeze(1))
+
+
+def _decode_eagerly(params, cfg, start, n_steps):
+    """``n_steps - 1`` steps from ``start``, each launched from the host;
+    returns the tokens (rows, n_steps) on the host."""
+    s = start.shape[-1]
+    tokens = start.first.clone()
+    pos = torch.full((), s, dtype=torch.int64, device=tokens.device)
+    out = tokens.new_empty((tokens.shape[0], s + n_steps)
+                           + tuple(tokens.shape[1:]))
+    out[:, s] = tokens
+    for _ in range(n_steps - 1):
+        _step(params, cfg, tokens, pos, start.caches, out)
+    return _np(out[:, s:])
+
+
+# How often decode's CUDA graph engages in this process: graphs captured
+# and decode steps replayed (``DecodeGraph.step``)
+DECODE_GRAPH = SimpleNamespace(captures=0, replays=0)
+
+# each model's decode graph, of the shape it served last; a model that is
+# let go takes its graph with it
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _decode_graph(params, cfg, rows, max_seq):
+    """The ``DecodeGraph`` that decodes ``rows`` users of ``params`` up to
+    ``max_seq`` positions, or None where decode runs eagerly: off a card,
+    and for a model with an MoE FFN, whose ``moe`` spans time each call
+    (a replay runs none) and whose capacity dispatch reads counts on the
+    host.  A model keeps one graph: a shape other than its graph's (the
+    config, device, rows, ``max_seq`` or cache dtype) replaces it with a
+    new one, captured on its first step."""
+    device = params.embed.device
+    if device.type != "cuda" or any(ffn == "moe"
+                                    for _, ffn in cfg.layer_specs):
+        return None
+    key = (cfg, device, rows, max_seq, params.embed.dtype)
+    graph = _GRAPHS.get(params)
+    if graph is None or graph.key != key:
+        _GRAPHS.pop(params, None)         # its buffers go before the new
+        graph = _GRAPHS[params] = DecodeGraph(key)
+    return graph
+
+
+class DecodeGraph:
+    """One greedy decode step of a model as a CUDA graph, with the static
+    buffers it reads and writes: every block's decode ``caches`` for
+    ``rows`` users and ``max_seq`` positions, the ``tokens`` it feeds
+    (then each step's argmax), their position ``pos`` (0-d, on the
+    device) and ``out`` (rows, max_seq) with each token at its position.
+    The first ``step`` runs eagerly on a side stream, then captures the
+    same step; every later one replays the graph.  One thread serves a
+    model at a time: its rounds share these buffers."""
+
+    def __init__(self, key):
+        cfg, device, rows, max_seq, dtype = self.key = key
+        self.caches = T.init_caches(cfg, rows, max_seq, dtype=dtype,
+                                    device=device)
+        shape = (rows, cfg.n_codebooks) if cfg.n_codebooks > 1 else (rows,)
+        self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.out = torch.zeros((rows, max_seq) + shape[1:],
+                               dtype=torch.int64, device=device)
+        self._graph = None
+
+    def run(self, params, cfg, start, n_steps):
+        """``n_steps - 1`` steps from ``start`` (its tokens and caches
+        copied in where they are not this graph's own); returns the
+        tokens (rows, n_steps) on the host."""
+        if start.first is not self.tokens:
+            self.tokens.copy_(start.first)
+        if start.caches is not self.caches:
+            for mine, theirs in zip(self.caches, start.caches):
+                for k, v in theirs.items():
+                    mine[k].copy_(v)
+        s = start.shape[-1]
+        self.pos.fill_(s)
+        self.out[:, s] = self.tokens
+        for _ in range(n_steps - 1):
+            self.step(params, cfg)
+        # a copy: the next run writes these buffers again
+        return _np(self.out[:, s:s + n_steps]).copy()
+
+    def step(self, params, cfg):
+        """One decode step: a replay, or the first step and the capture."""
+        dev = self.pos.device
+        with torch.cuda.device(dev):
+            if self._graph is not None:
+                self._graph.replay()
+                DECODE_GRAPH.replays += 1
+                spans.add(replays=1)
+                return
+            # this step eagerly on the capture's stream first: libraries
+            # make their workspaces outside the capture, and the graph's
+            # first replay is the next step
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _step(params, cfg, self.tokens, self.pos, self.caches,
+                      self.out)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with CAPTURE_LOCK, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                _step(params, cfg, self.tokens, self.pos, self.caches,
+                      self.out)
+        self._graph = graph
+        DECODE_GRAPH.captures += 1
+        spans.add(captures=1)
+
+
+class _CacheSink:
+    """Where a split group's blocks put their decode caches as they run
+    (``split_runtime``'s ``caches``) when decode runs as a graph: each
+    block's cache, as it is appended, copied into the graph's caches at
+    the group's ``rows`` (an attention cache's shared ``pos`` whole) and
+    let go, so that a cell's decode caches exist once."""
+
+    def __init__(self, graph, rows):
+        self.graph, self.rows, self._layer = graph, rows, 0
+
+    def append(self, cache):
+        for k, v in cache.items():
+            mine = self.graph.caches[self._layer][k]
+            if k == "pos":
+                mine.copy_(v)
+            else:
+                mine.index_copy_(0, self.rows, v)
+        self._layer += 1
 
 
 class SplitServeEngine:

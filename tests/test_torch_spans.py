@@ -206,9 +206,55 @@ def test_serve_round_span_tree():
                                            * len(groups)
                                            + ["serve.prefill",
                                               "serve.decode"])
-        assert inner[-1].fields == {"steps": 3}
+        assert inner[-1].fields == {"steps": 3, "graphed": False,
+                                    "captures": 0, "replays": 0}
         for s in inner:
             assert _inside(s, cell) and _inside(cell, root)
+
+
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+def test_serve_decode_span_counts_the_decode_graph(dev):
+    """``serve.decode``'s ``graphed``, ``captures`` and ``replays`` over
+    two rounds of two cells of one shape: on the CPU every decode runs
+    eagerly; on a card the first captures the graph (its first step runs
+    eagerly) and every other step of both rounds replays it, as
+    ``engine.DECODE_GRAPH`` counts."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+
+    if dev == "cuda" and not torch.cuda.is_available():
+        pytest.skip("a CUDA graph is captured and replayed only on a card")
+    device = torch.device(dev)
+    cfg = get_tiny_config("mamba2-780m")
+    model = transformer.init(torch.Generator().manual_seed(0), cfg, device)
+    prof = profiles.transformer_profile(cfg, seq=16, device=device)
+    ncfg = network.small_config(n_users=6, n_subchannels=3)
+    cluster = SplitInferenceCluster(model, cfg, prof, device=device,
+                                    spec=ligd.SolverSpec(max_steps=5))
+    for i in range(2):
+        cluster.add_cell(network.make_scenario(
+            torch.Generator().manual_seed(i), ncfg, device))
+    cluster.start(threaded=False)
+    rng = np.random.default_rng(0)
+    before = (engine.DECODE_GRAPH.captures, engine.DECODE_GRAPH.replays)
+    try:
+        with spans.enable():
+            for _ in range(2):
+                cluster.serve_round(rng.integers(
+                    0, cfg.vocab_size, (2, 6, 16)), decode_steps=4)
+    finally:
+        cluster.stop(drain=False)
+    counts = (engine.DECODE_GRAPH.captures - before[0],
+              engine.DECODE_GRAPH.replays - before[1])
+    got = [(s.fields["graphed"], s.fields["captures"], s.fields["replays"])
+           for s in _named(spans.finished(), "serve.decode")]
+    if dev == "cpu":
+        assert got == [(False, 0, 0)] * 4 and counts == (0, 0)
+    else:
+        assert got == [(True, 1, 2)] + [(True, 0, 3)] * 3
+        assert counts == (1, 11)
 
 
 # ------------------------------------------------------------- switches
