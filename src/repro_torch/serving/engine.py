@@ -6,20 +6,20 @@ Pipeline per admission round:
      on its users' tokens, the crossing activations are "transmitted" over
      the simulated NOMA link (latency = bits / scheduled rate), and the edge
      side runs as one batched forward per group
-  3. decode continues on the edge from the KV/state caches that the split
-     groups' forward captured on the way, each group's rows placed at
-     their users' indices: the prompt runs once.  The one exception, a
+  3. decode continues on the edge from one decode state, a model's
+     static ``DecodeBuffers`` (kept across rounds and cells of one
+     shape): the split groups' blocks put their KV/state caches there at
+     their users' rows as they make them, so the prompt runs once, and
+     every step updates the buffers in place.  The one exception, a
      model with a capacity-bound MoE FFN whose cell has more than one
-     split group, prefills the whole cell again (``transformer.prefill``):
+     split group, runs the whole cell once more into the same buffers:
      an expert's capacity depends on which rows share a batch, so there
      the groups' forward is not the whole cell's.  A dropless MoE
-     (``capacity_factor=None``) computes each row on its own and reuses
-     the groups' caches like every other FFN.  On a card, a model whose
-     blocks have no MoE FFN decodes by replaying one step captured as a
-     CUDA graph (``DecodeGraph``, kept across rounds and cells of one
-     shape): the groups' caches go into the graph's buffers as the
-     blocks make them, and the step reads its position on the device;
-     an MoE model, and any model on the CPU, decodes step by step
+     (``capacity_factor=None``) computes each row on its own and fills
+     the buffers from the groups like every other FFN.  One decision,
+     ``graphed``, made when the buffers are built: on a card, for a
+     model without an MoE FFN, the step is captured once as a CUDA
+     graph and replayed; elsewhere it runs step by step
 
 The radio and edge-compute times are simulated from the schedule and the
 split profile; the numerical path (device prefix -> crossing tensor ->
@@ -91,24 +91,24 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
     edge_flops = prof.edge_flops.tolist()
     results: Dict[int, RequestResult] = {}
     groups = sched.groups()
-    capacity_moe = not moe.dropless(cfg) and any(
-        ffn == "moe" for _, ffn in cfg.layer_specs)
-    # decode starts from the groups' caches (step 3), except where a
-    # capacity-bound MoE FFN sees other batches than the whole cell's.
     # Sequence length is the LAST axis — multi-codebook models carry (U,
     # n_codebooks, S) tokens, where shape[1] would be n_codebooks
-    max_seq = tokens.shape[-1] + decode_steps + 1 \
-        if decode_steps and not (capacity_moe and len(groups) > 1) else None
-    graph = None if max_seq is None else _decode_graph(
-        params, cfg, tokens.shape[0], max_seq)
+    bufs = _decode_buffers(params, cfg, tokens.shape[0],
+                           tokens.shape[-1] + decode_steps + 1) \
+        if decode_steps else None
+    # the groups fill decode's buffers (step 3), except where a
+    # capacity-bound MoE FFN sees other batches than the whole cell's
+    refill = bufs is not None and len(groups) > 1 \
+        and _has_moe(cfg) and not moe.dropless(cfg)
     starts = []
 
     with spans.span("serve.cell", groups=len(groups)):
         for split, users in groups.items():
             next_tok, crossing_bits, start = _split_group(
-                params, cfg, tokens, split, users, max_seq, graph)
+                params, cfg, tokens, split, users,
+                None if refill else bufs)
             if start is not None:
-                starts.append((users, *start))
+                starts.append(start)
             dev_fl = float(dev_flops[split])
             edge_fl = float(edge_flops[split])
             for row, u in enumerate(users):
@@ -132,31 +132,29 @@ def execute_schedule(params, cfg, netcfg, prof, sched: Schedule,
 
         if decode_steps:
             _continue_decode(params, cfg,
-                             _decode_start(params, cfg, tokens, starts,
-                                           decode_steps),
+                             _decode_start(params, cfg, tokens, bufs,
+                                           starts),
                              results, decode_steps)
     return [results[u] for u in sorted(results)]
 
 
-def _split_group(params, cfg, tokens, split, users, max_seq=None,
-                 graph=None):
+def _split_group(params, cfg, tokens, split, users, bufs=None):
     """One split group's forward, the ``serve.split_group`` span: the
     device side on the group's rows, the edge side, and the first greedy
     token's copy to the host.  Returns the tokens, the crossing tensor's
-    bits per user and, with ``max_seq``, the group's part of decode's
-    start: its first tokens on the device and each block's decode cache,
-    captured by both sides as they run (``split_runtime``), or, given a
-    decode ``graph``, the sink that put each cache into the graph's
-    buffers at the group's rows; else None."""
+    bits per user and, given decode's ``bufs`` (``DecodeBuffers``), the
+    group's rows and first tokens on the device, its blocks' decode
+    caches put into the buffers at those rows as both sides run
+    (``split_runtime``, ``_CacheSink``); else None."""
     with spans.span("serve.split_group", split=int(split), rows=len(users)):
         rows = torch.as_tensor(users, device=tokens.device)
         toks = tokens[rows]
-        caches = None if max_seq is None else \
-            [] if graph is None else _CacheSink(graph, rows)
         logits, crossing_bits = split_runtime.split_inference(
-            params, cfg, toks, split, max_seq=max_seq, caches=caches)
+            params, cfg, toks, split,
+            max_seq=None if bufs is None else bufs.max_seq,
+            caches=None if bufs is None else _CacheSink(bufs, rows))
         first = torch.argmax(logits[:, -1], -1)
-        start = None if caches is None else (first, caches)
+        start = None if bufs is None else (rows, first)
         return _np(first), crossing_bits / len(users), start
 
 
@@ -183,82 +181,41 @@ class DecodeStart:
              for c in self.caches])
 
 
-def _decode_start(params, cfg, tokens, starts, n_steps) -> DecodeStart:
-    """Decode's start for every row of the cell, the ``serve.prefill``
-    span: from the split groups' ``(users, first tokens, caches)``
-    (``_split_group``), or, with none, by ``transformer.prefill`` over
-    the cell.  The span's fields count the rows each way: ``reused_rows``,
-    ``prefilled_rows``."""
+def _decode_start(params, cfg, tokens, bufs, starts) -> DecodeStart:
+    """Decode's start for every row of the cell in ``bufs``, the
+    ``serve.prefill`` span: each split group's ``(rows, first tokens)``
+    (``_split_group``, whose blocks already put their caches there)
+    written at its rows, or, with none, the whole cell run once more into
+    the buffers, the computation of ``transformer.prefill``.  The span's
+    fields count the rows each way: ``reused_rows``, ``prefilled_rows``."""
     n_users = tokens.shape[0]
-    reused = sum(len(users) for users, _, _ in starts)
+    reused = sum(len(rows) for rows, _ in starts)
     with spans.span("serve.prefill", reused_rows=reused,
                     prefilled_rows=n_users - reused):
-        if starts:
-            first, caches = _merge_starts(starts, n_users)
-        else:
-            logits, caches, _ = T.prefill(
-                params, cfg, tokens, max_seq=tokens.shape[-1] + n_steps + 1)
-            first = torch.argmax(logits[:, -1], -1)
+        if not starts:
+            rows = torch.arange(n_users, device=tokens.device)
+            logits, _ = split_runtime.split_inference(
+                params, cfg, tokens, 0, max_seq=bufs.max_seq,
+                caches=_CacheSink(bufs, rows))
+            starts = [(rows, torch.argmax(logits[:, -1], -1))]
             del logits
-    return DecodeStart(tokens, first, caches)
-
-
-def _merge_starts(starts, n_users):
-    """The cell's first tokens and decode caches from its split groups'
-    ``(users, first tokens, caches)``: each row placed at its user's
-    index, the attention caches' shared ``pos`` taken once (every prompt
-    of a round has one length).  One group holding every user in order
-    passes through uncopied.  Groups whose caches went into a decode
-    graph's buffers as they were made (``_CacheSink``) place their first
-    tokens there too.  Empties ``starts``, so that each layer of the
-    groups' caches is let go as soon as it is merged."""
-    users0, first0, caches0 = starts[0]
-    if isinstance(caches0, _CacheSink):
-        graph = caches0.graph
-        for _, first, sink in starts:
-            graph.tokens.index_copy_(0, sink.rows, first)
-        starts.clear()
-        return graph.tokens, graph.caches
-    if len(starts) == 1 and np.array_equal(users0, np.arange(n_users)):
-        starts.clear()
-        return first0, caches0
-    rows = [torch.as_tensor(users, device=first0.device)
-            for users, _, _ in starts]
-
-    def place(parts):
-        out = parts[0].new_empty((n_users,) + tuple(parts[0].shape[1:]))
-        for idx, part in zip(rows, parts):
-            out.index_copy_(0, idx, part)
-        return out
-
-    first = place([f for _, f, _ in starts])
-    group_caches = [c for _, _, c in starts]
-    starts.clear()
-    merged = []
-    for layer in range(len(caches0)):
-        parts = [c[layer] for c in group_caches]
-        for c in group_caches:
-            c[layer] = None
-        merged.append({k: v if k == "pos" else place([p[k] for p in parts])
-                       for k, v in parts[0].items()})
-    return first, merged
+        for rows, first in starts:
+            bufs.tokens.index_copy_(0, rows, first)
+    return DecodeStart(tokens, bufs.tokens, bufs.caches)
 
 
 def _continue_decode(params, cfg, start, results, n_steps):
     """Greedy decode continuation on the edge (full model, cached) from
     ``start`` (a ``DecodeStart``), the ``serve.decode`` span: the further
-    steps, then each user's tokens into its result.  The steps replay a
-    ``DecodeGraph`` where ``_decode_graph`` gives one, else run eagerly;
-    the span's fields: ``steps``, ``graphed``, and the graph's
-    ``captures`` and ``replays`` in it."""
+    steps on the model's ``DecodeBuffers``, then each user's tokens into
+    its result.  The span's fields: ``steps``, ``graphed`` (whether the
+    steps replay a CUDA graph), and the graph's ``captures`` and
+    ``replays`` in it."""
     s = start.shape[-1]
-    graph = _decode_graph(params, cfg, start.shape[0], s + n_steps + 1)
+    bufs = _decode_buffers(params, cfg, start.shape[0], s + n_steps + 1)
     with spans.span("serve.decode", steps=n_steps - 1,
-                    graphed=graph is not None, captures=0, replays=0):
-        if graph is None:
-            seq = _decode_eagerly(params, cfg, start, n_steps)
-        else:
-            seq = graph.run(params, cfg, start, n_steps)
+                    graphed=bufs.graphed, captures=0, replays=0):
+        seq = bufs.run(params, cfg, start, n_steps)
     for u, r in results.items():
         r.tokens_out = seq[u]
 
@@ -269,7 +226,7 @@ def _step(params, cfg, tokens, pos, caches, out):
     ``transformer.decode_step``, their argmax written back to ``tokens``
     and to ``out`` (rows, positions) at the next position, ``pos``
     advanced.  It reads nothing on the host, so it is the step a
-    ``DecodeGraph`` captures."""
+    graphed ``DecodeBuffers`` captures."""
     logits, _ = T.decode_step(params, cfg, tokens, pos, caches)
     nxt = torch.argmax(logits, -1)
     tokens.copy_(nxt)
@@ -277,73 +234,67 @@ def _step(params, cfg, tokens, pos, caches, out):
     out.index_copy_(1, pos.view(1), nxt.unsqueeze(1))
 
 
-def _decode_eagerly(params, cfg, start, n_steps):
-    """``n_steps - 1`` steps from ``start``, each launched from the host;
-    returns the tokens (rows, n_steps) on the host."""
-    s = start.shape[-1]
-    tokens = start.first.clone()
-    pos = torch.full((), s, dtype=torch.int64, device=tokens.device)
-    out = tokens.new_empty((tokens.shape[0], s + n_steps)
-                           + tuple(tokens.shape[1:]))
-    out[:, s] = tokens
-    for _ in range(n_steps - 1):
-        _step(params, cfg, tokens, pos, start.caches, out)
-    return _np(out[:, s:])
-
-
 # How often decode's CUDA graph engages in this process: graphs captured
-# and decode steps replayed (``DecodeGraph.step``)
+# and decode steps replayed (``DecodeBuffers.step``)
 DECODE_GRAPH = SimpleNamespace(captures=0, replays=0)
 
-# each model's decode graph, of the shape it served last; a model that is
-# let go takes its graph with it
-_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# each model's decode buffers, of the shape it served last; a model that
+# is let go takes its buffers with it
+_BUFFERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _decode_graph(params, cfg, rows, max_seq):
-    """The ``DecodeGraph`` that decodes ``rows`` users of ``params`` up to
-    ``max_seq`` positions, or None where decode runs eagerly: off a card,
-    and for a model with an MoE FFN, whose ``moe`` spans time each call
-    (a replay runs none) and whose capacity dispatch reads counts on the
-    host.  A model keeps one graph: a shape other than its graph's (the
-    config, device, rows, ``max_seq`` or cache dtype) replaces it with a
-    new one, captured on its first step."""
-    device = params.embed.device
-    if device.type != "cuda" or any(ffn == "moe"
-                                    for _, ffn in cfg.layer_specs):
-        return None
-    key = (cfg, device, rows, max_seq, params.embed.dtype)
-    graph = _GRAPHS.get(params)
-    if graph is None or graph.key != key:
-        _GRAPHS.pop(params, None)         # its buffers go before the new
-        graph = _GRAPHS[params] = DecodeGraph(key)
-    return graph
+def _has_moe(cfg):
+    return any(ffn == "moe" for _, ffn in cfg.layer_specs)
 
 
-class DecodeGraph:
-    """One greedy decode step of a model as a CUDA graph, with the static
-    buffers it reads and writes: every block's decode ``caches`` for
-    ``rows`` users and ``max_seq`` positions, the ``tokens`` it feeds
-    (then each step's argmax), their position ``pos`` (0-d, on the
-    device) and ``out`` (rows, max_seq) with each token at its position.
-    The first ``step`` runs eagerly on a side stream, then captures the
-    same step; every later one replays the graph.  One thread serves a
+def _graphed(cfg, device):
+    """Whether decode's step is captured as a CUDA graph: on a card, for
+    a model without an MoE FFN.  An MoE's ``moe`` spans time each call (a
+    replay runs none) and its capacity dispatch reads counts on the
+    host."""
+    return device.type == "cuda" and not _has_moe(cfg)
+
+
+def _decode_buffers(params, cfg, rows, max_seq):
+    """The ``DecodeBuffers`` that decode ``rows`` users of ``params`` up
+    to ``max_seq`` positions.  A model keeps one set: a shape other than
+    its buffers' (the config, device, rows, ``max_seq`` or cache dtype)
+    replaces them with new ones (and a graph captured anew on their first
+    step)."""
+    key = (cfg, params.embed.device, rows, max_seq, params.embed.dtype)
+    bufs = _BUFFERS.get(params)
+    if bufs is None or bufs.key != key:
+        _BUFFERS.pop(params, None)        # the old buffers go before the new
+        bufs = _BUFFERS[params] = DecodeBuffers(key)
+    return bufs
+
+
+class DecodeBuffers:
+    """A cell's decode state, the static buffers that its greedy decode
+    steps read and write in place: every block's decode ``caches`` for
+    ``rows`` users and ``max_seq`` positions, the ``tokens`` each step
+    feeds (then its argmax), their position ``pos`` (0-d, on the device)
+    and ``out`` (rows, max_seq) with each token at its position.  Where
+    ``graphed`` (``_graphed``), the first ``step`` runs eagerly on a side
+    stream, then captures the same step as a CUDA graph, and every later
+    one replays it; elsewhere each step runs eagerly.  One thread serves a
     model at a time: its rounds share these buffers."""
 
     def __init__(self, key):
-        cfg, device, rows, max_seq, dtype = self.key = key
-        self.caches = T.init_caches(cfg, rows, max_seq, dtype=dtype,
+        cfg, device, rows, self.max_seq, dtype = self.key = key
+        self.graphed = _graphed(cfg, device)
+        self.caches = T.init_caches(cfg, rows, self.max_seq, dtype=dtype,
                                     device=device)
         shape = (rows, cfg.n_codebooks) if cfg.n_codebooks > 1 else (rows,)
         self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
-        self.out = torch.zeros((rows, max_seq) + shape[1:],
+        self.out = torch.zeros((rows, self.max_seq) + shape[1:],
                                dtype=torch.int64, device=device)
         self._graph = None
 
     def run(self, params, cfg, start, n_steps):
         """``n_steps - 1`` steps from ``start`` (its tokens and caches
-        copied in where they are not this graph's own); returns the
+        copied in where they are not these buffers' own); returns the
         tokens (rows, n_steps) on the host."""
         if start.first is not self.tokens:
             self.tokens.copy_(start.first)
@@ -360,7 +311,11 @@ class DecodeGraph:
         return _np(self.out[:, s:s + n_steps]).copy()
 
     def step(self, params, cfg):
-        """One decode step: a replay, or the first step and the capture."""
+        """One decode step: eager where not ``graphed``; else a replay, or
+        the first step and the capture."""
+        if not self.graphed:
+            _step(params, cfg, self.tokens, self.pos, self.caches, self.out)
+            return
         dev = self.pos.device
         with torch.cuda.device(dev):
             if self._graph is not None:
@@ -389,21 +344,25 @@ class DecodeGraph:
 
 class _CacheSink:
     """Where a split group's blocks put their decode caches as they run
-    (``split_runtime``'s ``caches``) when decode runs as a graph: each
-    block's cache, as it is appended, copied into the graph's caches at
-    the group's ``rows`` (an attention cache's shared ``pos`` whole) and
-    let go, so that a cell's decode caches exist once."""
+    (``split_runtime``'s ``caches``): each block's cache, as it is
+    appended, copied into the ``DecodeBuffers``' caches at the group's
+    ``rows`` (an attention cache's shared ``pos`` whole) and let go, so
+    that a cell's decode caches exist once."""
 
-    def __init__(self, graph, rows):
-        self.graph, self.rows, self._layer = graph, rows, 0
+    def __init__(self, bufs, rows):
+        self.bufs, self.rows, self._layer = bufs, rows, 0
 
     def append(self, cache):
         for k, v in cache.items():
-            mine = self.graph.caches[self._layer][k]
+            mine = self.bufs.caches[self._layer][k]
             if k == "pos":
                 mine.copy_(v)
             else:
                 mine.index_copy_(0, self.rows, v)
+        # emptied: the blocks' loop holds the dict while the next block
+        # runs, which would keep two layers' fresh caches beside the
+        # buffers at once
+        cache.clear()
         self._layer += 1
 
 

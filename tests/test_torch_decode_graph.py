@@ -1,18 +1,21 @@
-"""Decode as a CUDA graph (``serving.engine.DecodeGraph``).
+"""Decode on static buffers (``serving.engine.DecodeBuffers``), captured
+as a CUDA graph on a card.
 
-On the CPU: the decode steps that a graph captures, held to the steps as
-they were before the graph (the position a host int, fresh cache
+On the CPU: the decode steps that the buffers run, held to the steps as
+they were before the buffers (the position a host int, fresh cache
 tensors every step) computed here: attention at a device position
 (global, local with its ring wrapping, M-RoPE's (B, 3, 1) positions), and
-the Mamba-2 and RG-LRU caches updated in place.  The graph's buffers, run
-step by step on the CPU in the graph's place, give the eager decode's
-tokens, split groups placed at their rows and rounds back to back.
+the Mamba-2 and RG-LRU caches updated in place.  One set of buffers
+serves rounds back to back, split groups placed at their rows, with the
+tokens of the whole-cell reference; the CPU and an MoE model decode
+eagerly (``graphed`` false).
 
 The ``cuda`` cases hold the graphed decode on the card to the eager
-decode of the same model: tokens equal and every step's logits within
-1e-6 of the largest, over two rounds of other prompts, mixed split
-groups, a second batch size with its own capture, and an MoE model that
-decodes eagerly."""
+decode of the same model (buffers with ``graphed`` false): tokens equal
+and every step's logits within 1e-6 of the largest, over two rounds of
+other prompts, mixed split groups, a second batch size with its own
+capture, and an MoE model that decodes eagerly."""
+import contextlib
 import math
 
 import numpy as np
@@ -27,6 +30,9 @@ from repro_torch.models.common import gelu
 from repro_torch.serving import engine
 from repro_torch.serving.scheduler import Schedule
 from repro_torch.telemetry import spans
+
+from port_bridge import one_intra_op_thread  # noqa: F401 (autouse)
+from test_torch_serve_cache_reuse import whole_cell_decode
 
 U, STEPS = 8, 12
 
@@ -182,7 +188,7 @@ def test_recurrent_decode_updates_its_cache_in_place(name, mixer, module,
         _assert_same_caches(cache, want_cache)
 
 
-# ------------------------------------------- the graph's buffers, CPU
+# ------------------------------------------------- the buffers, CPU
 def _schedule(split):
     one = np.ones(len(split), np.float32)
     n = len(split)
@@ -215,62 +221,35 @@ def _split(cfg, layout, users=U):
 
 
 def test_no_graph_on_the_cpu_or_for_an_moe():
-    for name in ("mamba2-780m", "mixtral-8x22b"):
+    """Every model gets buffers; their steps are graphed on a card, and
+    never on the CPU nor for a model with an MoE FFN."""
+    for name, on_a_card in (("mamba2-780m", True), ("mixtral-8x22b", False)):
         cfg, model = _model(name)
-        assert engine._decode_graph(model, cfg, U, 40) is None
-        assert model not in engine._GRAPHS
+        bufs = engine._decode_buffers(model, cfg, U, 40)
+        assert engine._BUFFERS[model] is bufs and not bufs.graphed
+        assert engine._graphed(cfg, torch.device("cuda")) == on_a_card
 
 
 @pytest.mark.parametrize("layout", ["spread", "split0"])
 @pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b",
                                   "gemma-2b", "musicgen-medium"])
-def test_graph_buffers_decode_as_eagerly(name, layout, monkeypatch):
-    """A ``DecodeGraph``'s buffers, its steps run one by one on the CPU
-    in the graph's place: each split group's caches placed at its users'
-    rows as the blocks make them, two rounds of other prompts on the same
-    buffers, and a ``DecodeStart`` that is not the graph's own (the
-    cell's halves) copied in, all give the eager decode's tokens."""
+def test_buffers_serve_rounds_back_to_back(name, layout):
+    """Two rounds of other prompts on one set of buffers, each split
+    group's caches placed at its users' rows as the blocks make them: each
+    round gives the tokens of the whole cell prefilled and decoded
+    (``whole_cell_decode``), and the second makes no new buffers."""
     cfg, model = _model(name, dtype="float32")
     split = _split(cfg, layout)
-    prompt = 64                    # recurrentgemma's window: the ring wraps
-    rounds = [_tokens(cfg, prompt, seed) for seed in (3, 4)]
-    want = [[r.tokens_out for r in _serve(model, cfg, split, t)]
-            for t in rounds]
-
+    # recurrentgemma's prompt fills its window of 64: the ring wraps
+    prompt = 64 if name == "recurrentgemma-2b" else 32
     made = []
-
-    def graph(params, cfg_, rows, max_seq):
-        key = (cfg_, params.embed.device, rows, max_seq, params.embed.dtype)
-        g = engine._GRAPHS.get(params)
-        if g is None or g.key != key:
-            g = engine._GRAPHS[params] = engine.DecodeGraph(key)
-            made.append(g)
-        return g
-
-    def step(self, params, cfg_):
-        engine._step(params, cfg_, self.tokens, self.pos, self.caches,
-                     self.out)
-
-    monkeypatch.setattr(engine, "_decode_graph", graph)
-    monkeypatch.setattr(engine.DecodeGraph, "step", step)
-    for t, w in zip(rounds, want):
-        got = [r.tokens_out for r in _serve(model, cfg, split, t)]
-        np.testing.assert_array_equal(np.stack(got), np.stack(w))
-    assert len(made) == 1
-
-    whole = engine._continue_decode
-
-    def halves(params, cfg_, start, results, n_steps):
-        n = start.shape[0] // 2
-        for rows in (slice(0, n), slice(n, None)):
-            part = {u - rows.start: r for u, r in results.items()
-                    if u in range(U)[rows]}
-            whole(params, cfg_, start[rows], part, n_steps)
-
-    monkeypatch.setattr(engine, "_continue_decode", halves)
-    got = [r.tokens_out for r in _serve(model, cfg, split, rounds[0])]
-    np.testing.assert_array_equal(np.stack(got), np.stack(want[0]))
-    engine._GRAPHS.pop(model, None)
+    for seed in (3, 4):
+        toks = _tokens(cfg, prompt, seed)
+        want, _ = whole_cell_decode(model, cfg, toks, STEPS)
+        got = [r.tokens_out for r in _serve(model, cfg, split, toks)]
+        np.testing.assert_array_equal(np.stack(got), want)
+        made.append(engine._BUFFERS[model])
+    assert made[1] is made[0]
 
 
 # --------------------------------------------------------------- a card
@@ -300,6 +279,18 @@ def _counts():
     return engine.DECODE_GRAPH.captures, engine.DECODE_GRAPH.replays
 
 
+@contextlib.contextmanager
+def _eager(model, cfg, users, max_seq):
+    """The model's decode buffers of this shape new, with ``graphed``
+    false, for the ``with`` block; let go after it."""
+    engine._BUFFERS.pop(model, None)
+    engine._decode_buffers(model, cfg, users, max_seq).graphed = False
+    try:
+        yield
+    finally:
+        engine._BUFFERS.pop(model, None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["spread", "split0"])
 @pytest.mark.parametrize("name,prompt", [("mamba2-780m", 64),
@@ -327,8 +318,7 @@ def test_graphed_decode_matches_eager_on_the_card(name, prompt, layout,
                         rec[:, prompt:prompt + STEPS - 1].clone()))
         return out
 
-    with monkeypatch.context() as eager:
-        eager.setattr(engine, "_decode_graph", lambda *a: None)
+    with _eager(model, cfg, U, max_seq):
         want = serve_all()
     c0, r0 = _counts()
     with spans.enable():
@@ -347,24 +337,24 @@ def test_graphed_decode_matches_eager_on_the_card(name, prompt, layout,
 
 
 @pytest.mark.cuda
-def test_a_second_batch_size_gets_its_own_capture(cuda_device,
-                                                  monkeypatch):
+def test_a_second_batch_size_gets_its_own_capture(cuda_device):
     """Rounds of 8, 4 and 4 users: the second size captures a graph of
     its own, which its next round replays; every round's tokens are the
     eager decode's."""
     cfg, model = _model("mamba2-780m", cuda_device)
     toks = _tokens(cfg, 32, 7)
+    sizes = (U, U // 2, U // 2)
+    want = []
+    for users in sizes:
+        with _eager(model, cfg, users, 32 + STEPS + 1):
+            want.append([r.tokens_out for r in _serve(
+                model, cfg, _split(cfg, "spread", users), toks[:users])])
     captures = []
-    for users in (U, U // 2, U // 2):
-        split = _split(cfg, "spread", users)
-        with monkeypatch.context() as eager:
-            eager.setattr(engine, "_decode_graph", lambda *a: None)
-            want = [r.tokens_out for r in _serve(model, cfg, split,
-                                                 toks[:users])]
+    for users, w in zip(sizes, want):
         c0, _ = _counts()
-        got = [r.tokens_out for r in _serve(model, cfg, split,
-                                            toks[:users])]
-        np.testing.assert_array_equal(np.stack(got), np.stack(want))
+        got = [r.tokens_out for r in _serve(
+            model, cfg, _split(cfg, "spread", users), toks[:users])]
+        np.testing.assert_array_equal(np.stack(got), np.stack(w))
         captures.append(_counts()[0] - c0)
     assert captures == [1, 1, 0]
 
@@ -382,4 +372,4 @@ def test_moe_decodes_eagerly_on_the_card(cuda_device):
     assert dec.fields == {"steps": STEPS - 1, "graphed": False,
                           "captures": 0, "replays": 0}
     assert _counts() == c0
-    assert model not in engine._GRAPHS
+    assert not engine._BUFFERS[model].graphed
