@@ -216,6 +216,26 @@ each with its timings:
                 round's ~4e5 records can overflow the profiler's
                 buffers); the graph pool is also logged after phases 6,
                 12, 13, 14 and 17
+ 23. decode_attention  the decode-attention kernel at the decode shape of
+                the benchmark's mixtral-8x22b.prefill4608 cell (global
+                attention, as published: 8 users, a ring of 4617 slots at
+                position 4608, H=48, K=8, D=128, bf16): within one bf16
+                ulp of the plain version in float32 and no further off than the
+                plain bf16 path; its device time (the kernel's ``ms``: 20
+                calls captured as one CUDA graph, replayed between CUDA
+                events; ``event_ms`` the CUDA-event time of a Python call,
+                ``host_ms`` the wrapper's host time a call) beside its
+                byte bound, the plain path's and
+                ``scaled_dot_product_attention(enable_gqa=True)``'s (the
+                library yardstick), its device time at other splits of
+                the keys, and the registers and spills of every
+                instantiation, none of which may spill.  Phases 9 and 12
+                count its launches in their served decode and hold the
+                first eager call of each shape there to the same two
+                checks at the path's own shape: recurrentgemma-2b's
+                D=256, 10 query heads on one KV head, window 2048, and
+                phase 12's registry mixtral, whose 4096-key window has
+                wrapped its ring of 4096 slots by position 4608
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
@@ -1877,6 +1897,170 @@ def phase_graphed_sweep(dev, by_path):
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+def check_decode_call(q, k, v, slot_pos, pos, window, scale, out, where):
+    """``out``, the decode-attention kernel's output for these inputs,
+    against the plain version in float32: within one bf16 ulp, and no
+    further off than the plain bf16 path.  Returns (its largest error,
+    the plain bf16 path's, the float32 output's largest magnitude)."""
+    from repro_torch.kernels.decode_attention import ref as dref
+    want32 = dref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                       slot_pos, pos, window=window,
+                                       scale=scale)
+    plain = dref.decode_attention_ref(q, k, v, slot_pos, pos, window=window,
+                                      scale=scale)
+    err = (out.float() - want32).abs()
+    plain_err = float((plain.float() - want32).abs().max())
+    if not (bool((err <= BF16_ULP_ATOL + BF16_ULP_RTOL * want32.abs()).all())
+            and float(err.max()) <= plain_err):
+        raise AssertionError(f"{where}: decode_attention kernel is off the "
+                             f"float32 plain version by {float(err.max())} "
+                             f"(the plain bf16 path by {plain_err})")
+    return float(err.max()), plain_err, float(want32.abs().max())
+
+
+def keeping_decode_calls(kept, limit=4):
+    """A stand-in for the decode-attention wrapper where the model calls
+    it (``decode_attention.ops._kernel``): it calls the wrapper, and for
+    the first call of each shape and window made outside graph capture
+    (at most ``limit``) keeps copies of the inputs and the output in
+    ``kept`` for ``checked_decode_calls``."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+
+    def call(q, k, v, slot_pos, pos, *, window=0, scale=None):
+        key = (tuple(q.shape), tuple(k.shape), window)
+        keep = (key not in kept and len(kept) < limit
+                and not torch.cuda.is_current_stream_capturing())
+        args = [x.clone() for x in (q, k, v, slot_pos, pos)] if keep else ()
+        out = dk.decode_attention(q, k, v, slot_pos, pos, window=window,
+                                  scale=scale)
+        if keep:
+            kept[key] = (args, window, scale, out.clone())
+        return out
+    return call
+
+
+def checked_decode_calls(kept, where):
+    """Each call ``keeping_decode_calls`` kept, through
+    ``check_decode_call``; returns one log entry a call: its shape,
+    window, position, whether the ring has wrapped, its keys, and the two
+    errors."""
+    if not kept:
+        raise AssertionError(f"{where}: no eager decode-attention call was "
+                             f"kept")
+    rows = []
+    for (q, k, v, slot_pos, pos), window, scale, out in kept.values():
+        err, plain_err, _ = check_decode_call(q, k, v, slot_pos, pos, window,
+                                              scale, out, where)
+        b, _, h, d = q.shape
+        t, kh = k.shape[1], k.shape[2]
+        now = int(pos)
+        keys = (slot_pos >= 0) & (slot_pos <= now)
+        if window:
+            keys &= slot_pos > now - window
+        rows.append(dict(shape=f"B{b}xT{t}xH{h}xK{kh}xD{d}", window=window,
+                         pos=now, wrapped=now >= t, keys=int(keys.sum()),
+                         f32_err=f"{err:.3e}",
+                         bf16_plain_err=f"{plain_err:.3e}"))
+    kept.clear()
+    return rows
+
+
+def phase_decode_attention(dev):
+    """Phase 23: the decode-attention kernel at the decode shape of the
+    benchmark's mixtral-8x22b.prefill4608 cell (module docs).  Returns its
+    entry of the kernels' JSON line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dref
+    t_phase = time.perf_counter()
+    # the benchmark cell's: 8 users of one cell, a 4608-token prompt, global
+    # attention; the ring of 4617 slots (the prompt, 8 greedy tokens and
+    # one more) at the first further step
+    b, t, h, kh, d, pos = 8, MOE_SEQ + 9, 48, 8, 128, MOE_SEQ
+    g = torch.Generator(device=dev).manual_seed(SEED + 2300)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = rn(b, 1, h, d), rn(b, t, kh, d), rn(b, t, kh, d)
+    slots = torch.arange(t, device=dev)
+    slot_pos = torch.where(slots <= pos, slots, -1)
+    now = torch.tensor(pos, device=dev)
+    scale = 1.0 / math.sqrt(d)
+    out = dk.decode_attention(q, k, v, slot_pos, now)
+    err, plain_err, out_max = check_decode_call(q, k, v, slot_pos, now, 0,
+                                                scale, out, "phase 23")
+    valid = (slot_pos >= 0) & (slot_pos <= now)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=valid[None, None, None, :], scale=scale,
+        enable_gqa=True)
+    lib = sdpa().transpose(1, 2)
+    sdpa_diff = float((lib.float() - out.float()).abs().max())
+
+    def graph_ms(fn, reps=20):
+        """Device ms of a call of ``fn``: ``reps`` calls captured as one
+        CUDA graph and replayed between CUDA events, so no host time
+        falls between the launches (CUDA events around Python calls count
+        the wrapper's host time once that is the longer)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+        return cuda_ms(graph.replay, reps=5) / reps
+
+    call = lambda: dk.decode_attention(q, k, v, slot_pos, now)
+    ev_ms = cuda_ms(call, reps=50)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    k_ms = graph_ms(call)
+    p_ms = cuda_ms(lambda: dref.decode_attention_ref(q, k, v, slot_pos, now,
+                                                     scale=scale), reps=10)
+    lib_ms = cuda_ms(sdpa, reps=50)
+    # its device time at other splits of the keys (the wrapper's choice
+    # is the fewest splits that give two blocks a multiprocessor)
+    tiles = -(-t // dk.TILE)
+    by_split = {}
+    for per in sorted({-(-tiles // n) for n in (1, 2, 3, 5, 7, 9, 13, 19,
+                                                 25, 37, tiles)}):
+        n = -(-tiles // per)
+        by_split[n] = round(graph_ms(lambda: dk._launch(
+            q, k, v, slot_pos, now, 0, scale, n, per)), 4)
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (q, k, v, out, slot_pos))
+    n_ops = 4.0 * d * b * h * (pos + 1)
+    bnd, by = bound_ms(n_bytes, n_ops, BF16_FLOPS_S)
+    usage = {re.search(r"decode_\w+?_kernel(ILi\d+E)?", n_).group(0): u_
+             for n_, u_ in _build.ptxas_usage("decode_attention").items()}
+    spilled = {n_: u_ for n_, u_ in usage.items() if u_[1] or u_[2]}
+    if spilled:
+        raise AssertionError(f"decode_attention instantiations spill "
+                             f"(registers, store, load bytes): {spilled}")
+    splits, per = dk.splits_for(b * kh, t, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log("decode_attention", shape=f"B{b}xT{t}xH{h}xK{kh}xD{d}", pos=pos,
+        splits=f"{splits}x{per}tiles", kernel_ms=f"{k_ms:.4f}",
+        event_ms=f"{ev_ms:.4f}", host_ms=f"{host_ms:.4f}",
+        bound_ms=f"{bnd:.4f}", bound_by=by, MB_moved=f"{n_bytes / 1e6:.2f}",
+        roofline_pct=f"{100 * bnd / k_ms:.1f}", plain_ms=f"{p_ms:.4f}",
+        sdpa_ms=f"{lib_ms:.4f}",
+        sdpa_max_abs_diff=f"{sdpa_diff:.3e}",
+        f32_plain_max_abs_err=f"{err:.3e}",
+        bf16_plain_max_abs_err=f"{plain_err:.3e}",
+        ms_by_splits=json.dumps(by_split).replace(" ", ""),
+        ptxas_regs_spill_st_ld=json.dumps(usage).replace(" ", ""),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="none: src/repro/models/attention.py:248 is plain "
+                         "jnp",
+                max_abs_err=err, max_scaled_err=err / out_max,
+                ms=k_ms, event_ms=ev_ms, plain_ms=p_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is available")
@@ -1888,6 +2072,8 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.era_step import ops as era_ops
     from repro_torch.kernels.era_step import ref as era_ref
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.era_step.kernel import era_step_fused
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1934,7 +2120,7 @@ def main():
     # each kernel's launches on every path that runs it, each path's counts
     # set to 0 just before it is driven and read just after
     by_path = {n: {} for n in ("era_step", "noma_rate", "flash_attention",
-                               "rglru_scan", "ssd")}
+                               "rglru_scan", "ssd", "decode_attention")}
     KERNEL_FNS = {"era_step": era_step_fused, "noma_rate": noma_rate,
                   "flash_attention": flash_attention_bshd}
     w = era.Weights()
@@ -2412,21 +2598,27 @@ def main():
     by_cell = {c: tokens[i] for i, c in enumerate(ids)}
     flash_attention_bshd.launches = 0
     rglru_scan.launches = 0
+    decode_attention.launches = 0
+    decode_calls = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
-    torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
+    with mock.patch.object(da_ops, "_kernel",
+                           keeping_decode_calls(decode_calls)):
+        t0 = time.perf_counter()
+        out = mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches["flash_attention"] = flash_attention_bshd.launches
     launches["rglru_scan"] = rglru_scan.launches
-    for name in ("flash_attention", "rglru_scan"):
+    launches["decode_attention"] = decode_attention.launches
+    for name in ("flash_attention", "rglru_scan", "decode_attention"):
         by_path[name]["recurrentgemma"] = launches[name]
-    for name in ("flash_attention", "rglru_scan"):
+    for name in ("flash_attention", "rglru_scan", "decode_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the model path")
     check_served(out, ids, mcfg)
+    decode_checked = checked_decode_calls(decode_calls, "phase 9")
     groups = {int(c): {s_: len(u) for s_, u in
                        mcluster.installed_schedule(c).groups().items()}
               for c in ids}
@@ -2465,8 +2657,10 @@ def main():
         split_vs_fused=json.dumps(split_errs).replace(" ", ""),
         kernel_vs_plain=f"{plain_err:.3e}", kernel_vs_plain_tol=PLAIN_LOGIT_TOL,
         launches=json.dumps({n: launches[n] for n in
-                             ("flash_attention", "rglru_scan")}
-                            ).replace(" ", ""))
+                             ("flash_attention", "rglru_scan",
+                              "decode_attention")}).replace(" ", ""),
+        decode_attention_vs_plain=json.dumps(decode_checked
+                                             ).replace(" ", ""))
     log("model_path_profile", round_s=f"{t_prof:.3f}",
         device_busy_s=f"{busy_s:.3f}",
         device_busy_share=f"{busy_s / t_prof:.3f}",
@@ -2773,19 +2967,27 @@ def main():
         return out
 
     flash_attention_bshd.launches = 0
+    decode_attention.launches = 0
+    decode_calls = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(moe_mod, "slots", counted_slots):
+    with mock.patch.object(moe_mod, "slots", counted_slots), \
+            mock.patch.object(da_ops, "_kernel",
+                              keeping_decode_calls(decode_calls)):
         t0 = time.perf_counter()
         out = mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
         torch.cuda.synchronize()
         t_serve = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     by_path["flash_attention"]["mixtral"] = flash_attention_bshd.launches
-    if flash_attention_bshd.launches <= 0:
-        raise AssertionError("flash_attention was not launched on the "
-                             "mixtral path")
+    by_path["decode_attention"]["mixtral"] = decode_attention.launches
+    for name_, fn_ in (("flash_attention", flash_attention_bshd),
+                       ("decode_attention", decode_attention)):
+        if fn_.launches <= 0:
+            raise AssertionError(f"{name_} was not launched on the mixtral "
+                                 f"path")
     check_served(out, ids, mcfg, MOE_USERS)
+    decode_checked = checked_decode_calls(decode_calls, "phase 12")
     # prefill calls see a group's users x MOE_SEQ tokens, decode calls one
     # token a user
     kept = {"prefill": [0, 0], "decode": [0, 0]}
@@ -2963,8 +3165,11 @@ def main():
         f32_kernel_vs_plain_agreeing=f"{f32_err:.3e}",
         f32_kernel_vs_plain_all=f"{f32_err_all:.3e}",
         block_flip_max=MOE_FLIP_MAX, block_and_f32_tol=PLAIN_LOGIT_TOL,
-        launches=json.dumps({"flash_attention": by_path["flash_attention"]
-                             ["mixtral"]}).replace(" ", ""))
+        launches=json.dumps({n_: by_path[n_]["mixtral"] for n_ in
+                             ("flash_attention", "decode_attention")}
+                            ).replace(" ", ""),
+        decode_attention_vs_plain=json.dumps(decode_checked
+                                             ).replace(" ", ""))
     log("mixtral_path_profile", round_s=f"{t_prof:.3f}",
         device_busy_s=f"{busy_s:.3f}",
         device_busy_share=f"{busy_s / t_prof:.3f}",
@@ -3152,6 +3357,9 @@ def main():
 
     # ---- 22. the compiled sweep (the GD chunk as CUDA graphs) -------------
     phase_graphed_sweep(dev, by_path)
+
+    # ---- 23. decode attention at mixtral's decode shape --------------------
+    kernels.append(phase_decode_attention(dev))
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -150,6 +150,13 @@ def library() -> ctypes.CDLL:
     lib.ssd_launch.argtypes = ([ptr] * 9 + [i32] * 6 + [i64] * 6
                                + [i32, ptr])
     lib.ssd_launch.restype = i32
+    # q, k, v, pos, position, scratch, o; B, H, KH, T, D, window, splits,
+    # tiles per split; scale; q's two strides, k's and v's three; the
+    # stream
+    lib.decode_attention_launch.argtypes = (
+        [ptr] * 7 + [i32] * 8
+        + [ctypes.c_float, ctypes.POINTER(i64), ctypes.POINTER(i64), ptr])
+    lib.decode_attention_launch.restype = i32
     return lib
 
 

@@ -1,7 +1,7 @@
 """Causal attention: GQA/MQA, RoPE / M-RoPE, global + sliding-window, with a
 naive path (tests), two chunked paths (long prefill without an S×S
 buffer), the hand-written flash-attention kernel, and a ring-buffer
-KV-cache decode step.
+KV-cache decode step (the hand-written decode-attention kernel on a card).
 
 ``constrain(x, name)`` is the sharding hook of the distributed layer
 (``distributed.sharding.ShardingRules.constrain``), called where the JAX
@@ -18,6 +18,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import (Params, apply_mrope, apply_rope,
                                        dense_init, dtype_of, no_constrain,
@@ -256,15 +257,29 @@ def init_cache(cfg, batch, max_seq, mixer="attn", dtype=None, *, device):
     }
 
 
+def _decode_kernel(q, cache):
+    """Whether decode attends through the hand-written kernel: on a card,
+    off a mesh (a DTensor keeps the plain path: the mesh's dry run) and
+    with no score hook set (its layout needs the scores on the mesh)."""
+    return (q.device.type == "cuda"
+            and not isinstance(q, DTensor)
+            and not isinstance(cache["k"], DTensor)
+            and _SCORE_CONSTRAIN[0] is no_constrain)
+
+
 def decode_step(params, cfg, x, pos, cache, mixer="attn",
                 constrain=no_constrain):
     """x (B,1,D); pos: the token's absolute position, a 0-d int64 tensor
     on x's device (an int is taken too).  Returns (y, cache); the cache is
     updated in place (the decode loop owns it).  Off a mesh nothing here
     reads the position on the host: its rotary positions, its ring slot
-    and the mask of valid keys are tensors computed from it, so that a
-    CUDA graph that captured the step replays it at whatever position
-    ``pos`` holds."""
+    and the mask of valid keys are tensors computed from it (on a card
+    by the decode-attention kernel, which reads the cache's ``pos`` ring
+    and ``pos`` by pointer), so that a CUDA graph that captured the step
+    replays it at whatever position ``pos`` holds.  Off the card, on a
+    mesh or with a score hook set (``_decode_kernel``), the attention is
+    the plain path that ``kernels.decode_attention.ref`` repeats: the
+    cache repeated across each group, then ``_sdpa``."""
     b = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     # DTensor keeps no sequence-sharded layout through an indexed in-place
@@ -285,8 +300,12 @@ def decode_step(params, cfg, x, pos, cache, mixer="attn",
         cache["v"][:, host % size] = v_new[:, 0]
         cache["pos"][host % size] = host
 
-    cpos = cache["pos"]
     window = cfg.window if mixer == "local" else 0
+    if _decode_kernel(q, cache):
+        out = da_ops.decode_attention(q, cache, pos, window=window,
+                                      scale=scale)
+        return _out_proj(params, out), cache
+    cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos)
     if window:
         valid &= cpos > pos - window

@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.core.era import lam
 from repro_torch.core.sweep_graph import CAPTURE_LOCK
+from repro_torch.kernels.decode_attention.kernel import decode_attention
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.serving import split_runtime
@@ -209,13 +210,17 @@ def _continue_decode(params, cfg, start, results, n_steps):
     ``start`` (a ``DecodeStart``), the ``serve.decode`` span: the further
     steps on the model's ``DecodeBuffers``, then each user's tokens into
     its result.  The span's fields: ``steps``, ``graphed`` (whether the
-    steps replay a CUDA graph), and the graph's ``captures`` and
-    ``replays`` in it."""
+    steps replay a CUDA graph), the graph's ``captures`` and ``replays``
+    in it, and ``attn_launches``, the decode-attention kernel's calls
+    that launched in it (``decode_attention.launches``; a replayed step
+    adds none)."""
     s = start.shape[-1]
     bufs = _decode_buffers(params, cfg, start.shape[0], s + n_steps + 1)
+    launches = decode_attention.launches
     with spans.span("serve.decode", steps=n_steps - 1,
-                    graphed=bufs.graphed, captures=0, replays=0):
+                    graphed=bufs.graphed, captures=0, replays=0) as span:
         seq = bufs.run(params, cfg, start, n_steps)
+        span.set(attn_launches=decode_attention.launches - launches)
     for u, r in results.items():
         r.tokens_out = seq[u]
 

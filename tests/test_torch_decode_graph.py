@@ -327,9 +327,13 @@ def test_graphed_decode_matches_eager_on_the_card(name, prompt, layout,
     decodes = [s for s in spans.finished() if s.name == "serve.decode"]
     spans.clear()
     assert _counts() == (c0 + 1, r0 + 2 * (STEPS - 1) - 1)
-    assert [(s.fields["graphed"], s.fields["captures"], s.fields["replays"])
-            for s in decodes] == [(True, 1, STEPS - 2),
-                                  (True, 0, STEPS - 1)]
+    # the decode-attention kernel launches in the eager first step only:
+    # the capture launches nothing and a replay is not counted
+    n_attn = sum(m in ("attn", "local") for m, _ in cfg.layer_specs)
+    assert [(s.fields["graphed"], s.fields["captures"], s.fields["replays"],
+             s.fields["attn_launches"])
+            for s in decodes] == [(True, 1, STEPS - 2, n_attn),
+                                  (True, 0, STEPS - 1, 0)]
     for (gt, gl), (wt, wl) in zip(got, want):
         np.testing.assert_array_equal(gt, wt)
         tol = 1e-6 * float(wl.abs().max())
@@ -369,7 +373,9 @@ def test_moe_decodes_eagerly_on_the_card(cuda_device):
         _serve(model, cfg, split, _tokens(cfg, 64, 8))
     (dec,) = [s for s in spans.finished() if s.name == "serve.decode"]
     spans.clear()
+    n_attn = sum(m in ("attn", "local") for m, _ in cfg.layer_specs)
     assert dec.fields == {"steps": STEPS - 1, "graphed": False,
-                          "captures": 0, "replays": 0}
+                          "captures": 0, "replays": 0,
+                          "attn_launches": (STEPS - 1) * n_attn}
     assert _counts() == c0
     assert not engine._BUFFERS[model].graphed

@@ -207,7 +207,8 @@ def test_serve_round_span_tree():
                                            + ["serve.prefill",
                                               "serve.decode"])
         assert inner[-1].fields == {"steps": 3, "graphed": False,
-                                    "captures": 0, "replays": 0}
+                                    "captures": 0, "replays": 0,
+                                    "attn_launches": 0}
         for s in inner:
             assert _inside(s, cell) and _inside(cell, root)
 
