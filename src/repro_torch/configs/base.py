@@ -91,6 +91,17 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
 
+    # Terms the JAX package's configuration has no field for, read by the
+    # models at their neutral values here (class attributes, not fields,
+    # so that every registry entry's fields stay the JAX package's);
+    # ``PortConfig`` makes them fields
+    shared_d_ff = 0                 # an always-on shared expert's width
+    position_embedding = "rope"     # "rope" | "nope" (no rotary embedding)
+    attention_multiplier = 0.0      # the score scale; 0 -> 1/sqrt(head_dim)
+    embedding_multiplier = 1.0      # times the token embedding
+    residual_multiplier = 1.0       # times each mixer's and FFN's output
+    logits_scaling = 1.0            # the logits are divided by it
+
     # ------------------------------------------------------------------ #
     def __post_init__(self):
         for mixer, ffn in self.pattern:
@@ -156,15 +167,38 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A port-only configuration: ``ModelConfig`` with the terms its JAX
+    counterpart lacks as fields (their meaning beside ``ModelConfig``'s
+    neutral class attributes).  Registered with ``port_only=True``:
+    ``get_config`` finds it, ``list_architectures`` (the JAX package's
+    list) does not name it."""
+    shared_d_ff: int = 0
+    position_embedding: str = "rope"
+    attention_multiplier: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"{self.name}: bad position_embedding "
+                             f"{self.position_embedding!r}")
+
+
 # --------------------------------------------------------------------------- #
 # registry
 # --------------------------------------------------------------------------- #
 _REGISTRY: dict = {}
+# configurations of the port alone (no JAX counterpart), by name
+_PORT_ONLY: dict = {}
 _TINY: dict = {}
 
 
-def register(cfg: ModelConfig, tiny: ModelConfig):
-    _REGISTRY[cfg.name] = cfg
+def register(cfg: ModelConfig, tiny: ModelConfig, port_only=False):
+    (_PORT_ONLY if port_only else _REGISTRY)[cfg.name] = cfg
     _TINY[cfg.name] = tiny
     return cfg
 
@@ -173,7 +207,7 @@ def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name.endswith(":tiny"):
         return _TINY[name[: -len(":tiny")]]
-    return _REGISTRY[name]
+    return _REGISTRY[name] if name in _REGISTRY else _PORT_ONLY[name]
 
 
 def get_tiny_config(name: str) -> ModelConfig:
@@ -201,4 +235,5 @@ def _ensure_loaded():
         gemma3_12b,
         gemma_2b,
         mamba2_780m,
+        granite_4_0_h_small,
     )

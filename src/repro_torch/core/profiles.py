@@ -224,6 +224,7 @@ def block_flops(cfg, spec, seq):
         mult = 3 if cfg.activation in ("silu", "geglu") else 2
         fl += 2.0 * seq * d * cfg.d_ff * mult * cfg.top_k
         fl += 2.0 * seq * d * cfg.n_experts             # router
+        fl += 2.0 * seq * d * cfg.shared_d_ff * mult    # shared expert
     return fl
 
 

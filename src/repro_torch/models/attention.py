@@ -1,4 +1,6 @@
-"""Causal attention: GQA/MQA, RoPE / M-RoPE, global + sliding-window, with a
+"""Causal attention: GQA/MQA, RoPE / M-RoPE or none (NoPE), global +
+sliding-window, scores scaled by 1/sqrt(head_dim) or the configured
+``attention_multiplier``, with a
 naive path (tests), two chunked paths (long prefill without an S×S
 buffer), the hand-written flash-attention kernel, and a ring-buffer
 KV-cache decode step (the hand-written decode-attention kernel on a card).
@@ -47,13 +49,22 @@ def init(generator, cfg, device):
 
 
 def _rope(cfg, x, positions):
+    if cfg.position_embedding == "nope":
+        return x
     if cfg.mrope_sections is not None:
         return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
+def _scale(cfg):
+    """The score scale: the configuration's ``attention_multiplier``
+    where it sets one, else 1/sqrt(head_dim)."""
+    return cfg.attention_multiplier or 1.0 / math.sqrt(cfg.resolved_head_dim)
+
+
 def _project_qkv(params, cfg, x, positions):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied.  On a
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd), RoPE applied (none
+    where the configuration's ``position_embedding`` is "nope").  On a
     mesh each comes out settled with its sequence whole (Megatron's
     sequence-parallel gather before attention): DTensor's score products
     fail on a sequence-sharded operand."""
@@ -209,7 +220,7 @@ def forward(params, cfg, x, positions, mixer="attn", impl="kernel",
 
 
 def _forward_kv(params, cfg, x, positions, mixer, impl, q_chunk, constrain):
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    scale = _scale(cfg)
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = cfg.window if mixer == "local" else 0
     out = _attend(q, k, v, window, scale, impl, q_chunk, constrain)
@@ -281,7 +292,7 @@ def decode_step(params, cfg, x, pos, cache, mixer="attn",
     the plain path that ``kernels.decode_attention.ref`` repeats: the
     cache repeated across each group, then ``_sdpa``."""
     b = x.shape[0]
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    scale = _scale(cfg)
     # DTensor keeps no sequence-sharded layout through an indexed in-place
     # write: a step on a mesh (never captured) writes at a host slot
     host = int(pos) if isinstance(cache["k"], DTensor) else None

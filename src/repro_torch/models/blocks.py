@@ -3,6 +3,10 @@ layer spec.  Three entry points per block: ``forward`` (full sequence),
 ``prefill`` (forward + cache capture), ``decode`` (single token against a
 cache).
 
+Each branch's output is added to the residual stream times the
+configuration's ``residual_multiplier`` (``_residual``; 1 for every
+registry model, where no multiply is issued).
+
 Mixers: attention and local attention (``attention``), the RG-LRU
 (``rglru``) and the Mamba-2 SSD (``ssm``).  FFNs: dense (``ffn``) and the
 mixture of experts (``moe``), whose router aux loss ``forward`` and
@@ -51,6 +55,14 @@ def _norm(cfg, x, w):
                    whole=(1,))
 
 
+def _residual(cfg, x, y):
+    """x + y: a mixer's or FFN's output ``y`` added to the residual stream,
+    times the configuration's ``residual_multiplier`` first where that is
+    not 1 (no multiply is issued at 1)."""
+    m = cfg.residual_multiplier
+    return x + laid_as(y if m == 1.0 else y * m, x)
+
+
 def _apply_ffn(params, cfg, spec, x, constrain=no_constrain):
     """Returns (y, aux); aux is the MoE balance loss, 0 for dense FFNs."""
     _, ffn_kind = spec
@@ -61,7 +73,7 @@ def _apply_ffn(params, cfg, spec, x, constrain=no_constrain):
         y, aux = moe.forward(params.ffn, cfg, h, constrain=constrain)
     else:
         y, aux = ffn_mod.forward(params.ffn, cfg, h), 0.0
-    return x + laid_as(y, x), aux
+    return _residual(cfg, x, y), aux
 
 
 def forward(params, cfg, spec, x, positions, impl="kernel",
@@ -82,7 +94,7 @@ def forward(params, cfg, spec, x, positions, impl="kernel",
         y = ssm.forward(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
-    return _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
+    return _apply_ffn(params, cfg, spec, _residual(cfg, x, y), constrain)
 
 
 # --------------------------------------------------------------------------- #
@@ -115,7 +127,7 @@ def prefill(params, cfg, spec, x, positions, max_seq, impl="kernel",
         y, cache = ssm.prefill(params.mixer, cfg, h, impl=impl)
     else:
         raise ValueError(mixer)
-    x, aux = _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
+    x, aux = _apply_ffn(params, cfg, spec, _residual(cfg, x, y), constrain)
     return x, cache, aux
 
 
@@ -134,5 +146,5 @@ def decode(params, cfg, spec, x, pos, cache, constrain=no_constrain):
         y, cache = ssm.decode_step(params.mixer, cfg, h, cache)
     else:
         raise ValueError(mixer)
-    x, _ = _apply_ffn(params, cfg, spec, x + laid_as(y, x), constrain)
+    x, _ = _apply_ffn(params, cfg, spec, _residual(cfg, x, y), constrain)
     return x, cache

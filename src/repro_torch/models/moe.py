@@ -35,8 +35,12 @@ so a token's output does not depend on the other tokens of its batch.
 It runs on plain tensors only: training and the sharded path keep the
 capacity dispatch.
 
+A configuration with a shared expert (``shared_d_ff``: Granite 4.0-H)
+adds that SwiGLU, run on every token as a dense FFN, to the routed sum.
+
 Each call is a ``moe`` span (``telemetry.spans``) with ``tokens``,
-``routed_rows`` (T·k), ``experts_hit``, ``max_expert_rows`` and
+``routed_rows`` (T·k), ``shared_rows`` (the rows the shared expert
+runs: T, or 0 without one), ``experts_hit``, ``max_expert_rows`` and
 ``dropped_rows``; the last three stay device tensors until the spans are
 read, so a traced call adds no host sync.  ``DROPPED_ROUTES`` counts,
 on the device, the routes the capacity path drops (the dropless path
@@ -59,6 +63,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import (Params, activate, dense_init,
                                        dtype_of, no_constrain)
+from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.ffn import is_gated
 from repro_torch.telemetry import spans
 
@@ -79,6 +84,9 @@ def init(generator, cfg, device):
     if is_gated(cfg.activation):
         p["w_gate"] = dense_init(generator, (e, d, f), dt, device,
                                  in_axis_size=d)
+    if cfg.shared_d_ff:
+        p["shared"] = ffn_mod.init(generator, cfg, device,
+                                   d_ff=cfg.shared_d_ff)
     return Params(**p)
 
 
@@ -254,37 +262,48 @@ def _combine(cfg, out_buf, info, cap):
 
 
 def forward(params, cfg, x, constrain=no_constrain):
-    """x (B, S, d) -> (y, aux_loss); the ``moe`` span (module docs)."""
+    """x (B, S, d) -> (y, aux_loss); the ``moe`` span (module docs).  A
+    configuration with a shared expert (``shared_d_ff``) adds its SwiGLU
+    on every token to the routed experts' sum."""
     b, s, d = x.shape
-    with spans.span("moe", tokens=b * s,
-                    routed_rows=b * s * cfg.top_k) as sp:
-        if dropless(cfg):
-            if isinstance(x, DTensor):
-                raise ValueError("the dropless MoE runs on plain tensors; "
-                                 "a mesh takes the capacity dispatch "
-                                 "(capacity_factor set)")
-            y, aux = _forward_dropless(params, cfg, x.reshape(b * s, d),
-                                       sp)
-            return y.reshape(b, s, d), aux
-        g = groups(cfg, b * s)
-        tl = b * s // g
-        cap = capacity(cfg, tl)
-        xg = constrain(x.reshape(g, tl, d), "moe_groups")
-        if isinstance(xg, DTensor):
-            y, aux = _forward_sharded(params, cfg, xg, cap, constrain, b)
-            return y.reshape(b, s, d), aux
-        buf, info, me, ce = _dispatch(params.router, cfg, xg, cap)
-        if sp and not xg.is_meta:
-            flat_e, _, keep, _ = info
-            rows = torch.zeros(cfg.n_experts, dtype=torch.int64,
-                               device=keep.device)
-            rows.scatter_add_(0, flat_e.reshape(-1),
-                              keep.reshape(-1).to(torch.int64))
-            _count(sp, rows, torch.sum(~keep))
-        out_buf = _experts(params, cfg, buf, cap, constrain)
-        del buf
-        y = _combine(cfg, out_buf, info, cap)
-        return y.reshape(b, s, d), cfg.n_experts * torch.sum(me * ce)
+    shared = b * s if cfg.shared_d_ff else 0
+    with spans.span("moe", tokens=b * s, routed_rows=b * s * cfg.top_k,
+                    shared_rows=shared) as sp:
+        y, aux = _routed(params, cfg, x, constrain, sp)
+        if shared:
+            y = y + ffn_mod.forward(params.shared, cfg, x)
+        return y, aux
+
+
+def _routed(params, cfg, x, constrain, sp):
+    """The routed experts' part of ``forward``, inside its span ``sp``."""
+    b, s, d = x.shape
+    if dropless(cfg):
+        if isinstance(x, DTensor):
+            raise ValueError("the dropless MoE runs on plain tensors; "
+                             "a mesh takes the capacity dispatch "
+                             "(capacity_factor set)")
+        y, aux = _forward_dropless(params, cfg, x.reshape(b * s, d), sp)
+        return y.reshape(b, s, d), aux
+    g = groups(cfg, b * s)
+    tl = b * s // g
+    cap = capacity(cfg, tl)
+    xg = constrain(x.reshape(g, tl, d), "moe_groups")
+    if isinstance(xg, DTensor):
+        y, aux = _forward_sharded(params, cfg, xg, cap, constrain, b)
+        return y.reshape(b, s, d), aux
+    buf, info, me, ce = _dispatch(params.router, cfg, xg, cap)
+    if sp and not xg.is_meta:
+        flat_e, _, keep, _ = info
+        rows = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                           device=keep.device)
+        rows.scatter_add_(0, flat_e.reshape(-1),
+                          keep.reshape(-1).to(torch.int64))
+        _count(sp, rows, torch.sum(~keep))
+    out_buf = _experts(params, cfg, buf, cap, constrain)
+    del buf
+    y = _combine(cfg, out_buf, info, cap)
+    return y.reshape(b, s, d), cfg.n_experts * torch.sum(me * ce)
 
 
 def _count(sp, rows, dropped=0):

@@ -10,6 +10,10 @@ reference in the JAX package.  ``forward`` needs L to be a multiple of
 (the chunked scan masks a ragged last chunk).  Decode is one recurrent
 step (``ref.ssd_decode_step_``, the cache updated in place).  SSD math
 in float32; y rounds to the activations' dtype before the gate.
+
+Each full-sequence call (``forward``, ``prefill``) is an ``ssm`` span
+(``telemetry.spans``) with ``rows``, ``tokens`` and ``heads``; the
+decode step opens none.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.common import (Params, batch_local, dense_init,
                                        dtype_of, rms_norm, settled,
                                        shift_right, sub_generator)
+from repro_torch.telemetry import spans
 
 
 def _dims(cfg):
@@ -125,19 +130,27 @@ def check_whole_chunks(cfg, l):
                          f"SSD chunk {chunk}; prefill takes any length")
 
 
+def _span(cfg, x):
+    """The ``ssm`` span of a full-sequence call on x (B,L,d)."""
+    b, l = x.shape[:2]
+    return spans.span("ssm", rows=b, tokens=b * l, heads=cfg.n_ssd_heads)
+
+
 def forward(params, cfg, x, impl="kernel"):
     """Full-sequence SSD mixer. x (B,L,d) -> y (B,L,d)."""
     check_whole_chunks(cfg, x.shape[1])
-    z, _, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
-    y, _ = _scan(params, cfg, xs, dt, A, B, C, impl)
-    return _out(params, cfg, y, z)
+    with _span(cfg, x):
+        z, _, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
+        y, _ = _scan(params, cfg, xs, dt, A, B, C, impl)
+        return _out(params, cfg, y, z)
 
 
 def prefill(params, cfg, x, impl="kernel"):
     """Forward + cache capture (SSD state + conv history), any length."""
-    z, xbc_raw, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
-    y, state = _scan(params, cfg, xs, dt, A, B, C, impl)
-    y = _out(params, cfg, y, z)
+    with _span(cfg, x):
+        z, xbc_raw, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
+        y, state = _scan(params, cfg, xs, dt, A, B, C, impl)
+        y = _out(params, cfg, y, z)
     w = cfg.conv_width - 1
     l = x.shape[1]
     # a copy, not a view: a view would keep the whole in_proj output of

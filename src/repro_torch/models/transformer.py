@@ -1,5 +1,6 @@
-"""Top-level decoder model: embedding -> one block per layer -> final norm
--> LM head, for every architecture of ``repro_torch.configs`` (attention,
+"""Top-level decoder model: embedding (times ``embedding_multiplier``) ->
+one block per layer -> final norm -> LM head (over ``logits_scaling``),
+for every architecture of ``repro_torch.configs`` (attention,
 local attention, RG-LRU and Mamba-2 SSD mixers; dense and
 mixture-of-experts FFNs).
 
@@ -85,16 +86,23 @@ def embed_tokens(params, cfg, tokens, vision_embeds=None):
     if cfg.gemma_style:
         # the scale rounds to the embedding's dtype first, as in JAX
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def lm_logits(params, cfg, x, constrain=no_constrain):
-    """Float32 logits (B,S,V), or (B,S,K,V) for multi-codebook heads."""
+    """Float32 logits (B,S,V), or (B,S,K,V) for multi-codebook heads,
+    divided by the configuration's ``logits_scaling``: the head's input is
+    divided (a pass over (B,S,d), not over the logits; for a power of two
+    the same bits as dividing the logits)."""
     # the sequence whole on a mesh, as before each block's products
     x = settled(rms_norm(x, params.final_norm, cfg.norm_eps,
                          gemma_style=cfg.gemma_style), whole=(1,))
+    if cfg.logits_scaling != 1.0:
+        x = x / cfg.logits_scaling
     if cfg.n_codebooks > 1:
         if cfg.tie_embeddings:
             logits = torch.einsum("bsd,kvd->bskv", x, params.embed)

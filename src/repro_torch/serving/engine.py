@@ -211,14 +211,17 @@ def _continue_decode(params, cfg, start, results, n_steps):
     steps on the model's ``DecodeBuffers``, then each user's tokens into
     its result.  The span's fields: ``steps``, ``graphed`` (whether the
     steps replay a CUDA graph), the graph's ``captures`` and ``replays``
-    in it, and ``attn_launches``, the decode-attention kernel's calls
-    that launched in it (``decode_attention.launches``; a replayed step
-    adds none)."""
+    in it, ``attn_launches``, the decode-attention kernel's calls that
+    launched in it (``decode_attention.launches``; a replayed step adds
+    none), and the buffers' two kinds of decode state,
+    ``ssm_state_bytes`` and ``kv_bytes`` (``DecodeBuffers``)."""
     s = start.shape[-1]
     bufs = _decode_buffers(params, cfg, start.shape[0], s + n_steps + 1)
     launches = decode_attention.launches
     with spans.span("serve.decode", steps=n_steps - 1,
-                    graphed=bufs.graphed, captures=0, replays=0) as span:
+                    graphed=bufs.graphed, captures=0, replays=0,
+                    ssm_state_bytes=bufs.ssm_state_bytes,
+                    kv_bytes=bufs.kv_bytes) as span:
         seq = bufs.run(params, cfg, start, n_steps)
         span.set(attn_launches=decode_attention.launches - launches)
     for u, r in results.items():
@@ -274,12 +277,21 @@ def _decode_buffers(params, cfg, rows, max_seq):
     return bufs
 
 
+def _nbytes(caches):
+    """The bytes of the tensors of the cache dicts ``caches``."""
+    return sum(v.numel() * v.element_size() for c in caches
+               for v in c.values())
+
+
 class DecodeBuffers:
     """A cell's decode state, the static buffers that its greedy decode
     steps read and write in place: every block's decode ``caches`` for
     ``rows`` users and ``max_seq`` positions, the ``tokens`` each step
     feeds (then its argmax), their position ``pos`` (0-d, on the device)
-    and ``out`` (rows, max_seq) with each token at its position.  Where
+    and ``out`` (rows, max_seq) with each token at its position; the
+    caches' bytes by kind: ``kv_bytes`` the attention layers' key/value
+    rings, ``ssm_state_bytes`` the recurrent layers' (Mamba-2's SSD state
+    and conv history, the RG-LRU's).  Where
     ``graphed`` (``_graphed``), the first ``step`` runs eagerly on a side
     stream, then captures the same step as a CUDA graph, and every later
     one replays it; elsewhere each step runs eagerly.  One thread serves a
@@ -290,6 +302,9 @@ class DecodeBuffers:
         self.graphed = _graphed(cfg, device)
         self.caches = T.init_caches(cfg, rows, self.max_seq, dtype=dtype,
                                     device=device)
+        kv = [c for c in self.caches if "k" in c]
+        self.kv_bytes = _nbytes(kv)
+        self.ssm_state_bytes = _nbytes(self.caches) - self.kv_bytes
         shape = (rows, cfg.n_codebooks) if cfg.n_codebooks > 1 else (rows,)
         self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)

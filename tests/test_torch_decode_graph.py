@@ -374,8 +374,13 @@ def test_moe_decodes_eagerly_on_the_card(cuda_device):
     (dec,) = [s for s in spans.finished() if s.name == "serve.decode"]
     spans.clear()
     n_attn = sum(m in ("attn", "local") for m, _ in cfg.layer_specs)
+    bufs = engine._BUFFERS[model]
     assert dec.fields == {"steps": STEPS - 1, "graphed": False,
                           "captures": 0, "replays": 0,
-                          "attn_launches": (STEPS - 1) * n_attn}
+                          "attn_launches": (STEPS - 1) * n_attn,
+                          "ssm_state_bytes": 0,
+                          "kv_bytes": bufs.kv_bytes}
+    assert bufs.kv_bytes == sum(c[k].numel() * c[k].element_size()
+                                for c in bufs.caches for k in c)
     assert _counts() == c0
     assert not engine._BUFFERS[model].graphed

@@ -227,6 +227,7 @@ def test_moe_span_and_dropped_route_counter(capacity_factor):
         dropped = 2 * (t - cap_big) + 2 * (S - cap_small)
         assert dropped > 0
     assert big.fields == {"tokens": t, "routed_rows": 2 * t,
+                          "shared_rows": 0,
                           "experts_hit": 2, "max_expert_rows": cap_big,
                           "dropped_rows": 2 * (t - cap_big)}
     assert small.fields["max_expert_rows"] == cap_small

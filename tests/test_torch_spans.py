@@ -206,9 +206,14 @@ def test_serve_round_span_tree():
                                            * len(groups)
                                            + ["serve.prefill",
                                               "serve.decode"])
+        # two Mamba-2 layers' decode state for 6 users: float32 states
+        # (16 heads of 32 x state 32) and bf16 conv histories (3 x 576)
         assert inner[-1].fields == {"steps": 3, "graphed": False,
                                     "captures": 0, "replays": 0,
-                                    "attn_launches": 0}
+                                    "attn_launches": 0,
+                                    "ssm_state_bytes": 2 * 6 * (
+                                        16 * 32 * 32 * 4 + 3 * 576 * 2),
+                                    "kv_bytes": 0}
         for s in inner:
             assert _inside(s, cell) and _inside(cell, root)
 
