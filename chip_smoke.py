@@ -58,16 +58,21 @@ each with its timings:
                 spill
  11. mamba2 path  mamba2-780m at full width and depth in bf16, served by
                 a ``SplitInferenceCluster`` of two cells with 2048-token
-                requests: the ssd kernel must have been launched in
+                requests: the ssd kernel and the mixer's two kernels
+                (``ssm_mixer``, one counter) must have been launched in
                 ``serve_round``, every user served, device + edge logits
                 equal to the fused forward; for a group's rows against a
-                plain forward (``impl="naive"``: the plain chunked scan),
+                plain forward (``impl="naive"``: the plain chunked scan
+                and mixer ops, no kernel launched),
                 the bf16 logits within twice the spread between two plain
                 forwards (chunk 256 and 128), each block's kernel output
                 within 2e-2 of its plain output on the same input, and
                 the float32 model's logits within 2e-2 of max |logit|;
                 each bf16 path's distance from a plain forward whose SSD
-                runs in float64 is logged
+                runs in float64 is logged; after the profiled round, a
+                round with the spans on: every ``ssm`` span has
+                ``mixer_launches`` 2 (the spans and the round's mixer
+                launches logged)
  12. mixtral path  mixtral-8x22b at published width (8 experts top-2,
                 GQA 48/8, window 4096, bf16) with depth cut to 6 of 56
                 layers, served by a ``SplitInferenceCluster`` of two
@@ -254,14 +259,34 @@ each with its timings:
                 bar counted); each kernel's CUDA-event time a call.  The
                 ssd misses its bar at a few outputs (PERF.md §6, ROADMAP
                 queue 1), so the run ends here, non-zero
+ 25. ssm mixer  before the kernels' JSON line (its entry ``ssm_mixer``:
+                both kernels' device time together, at mamba2's shape
+                and at granite's): the Mamba-2 mixer's two elementwise
+                kernels (causal_conv_silu, gated_rms_norm) at the serve
+                cells' shapes, mamba2-780m's (B=16, L=2048, 3328 conv
+                channels, d_inner 3072) and granite-4.0-h-small's (B=8,
+                L=4096, 8448, 8192), and at their decode step's (L=1,
+                where the gate kernel runs), read in place from an
+                in_proj output of the model's row stride: each within
+                one bf16 ulp of its plain version in float32 and no
+                further off than the plain bf16 path; each kernel's
+                device time (20 calls replayed
+                as one CUDA graph between events, as phase 23 times its
+                kernel: the profiler records no kernel this late), its
+                byte bound at 3.35 TB/s and the plain path's time;
+                one whole ``ssm.prefill`` of a full-width layer with the
+                kernels and with the plain ops (the ``ssm`` span's
+                ``mixer_launches``); the registers and spills of every
+                instantiation, none of which may spill
 
 Then the kernels' JSON line (``max_abs_err`` is the largest absolute
 difference over every output; ``max_scaled_err`` the largest of the
 quantities the tolerances bound: Γ's relative error and each leaf's
 error over its max abs; ``launches`` the count on each kernel's first
 path, ``launches_by_path`` its count on every path that runs it; flash's
-``mixtral_*`` keys its times at mixtral's shape), phase 24's line,
-the card's ``name, power.limit`` line from nvidia-smi, and as the last line
+``mixtral_*`` keys its times at mixtral's shape, the mixer's
+``granite_*`` its times at granite's), phase 24's line, the card's
+``name, power.limit`` line from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
 non-zero, and so does a machine without a card.
 """
@@ -436,6 +461,19 @@ def cuda_ms(fn, reps, warm=2):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of a call of ``fn``: ``reps`` calls captured as one CUDA
+    graph and replayed between CUDA events, so no host time falls between
+    the launches (CUDA events around Python calls count the wrapper's
+    host time once that is the longer).  Late in the script, where the
+    profiler records no kernel after phase 22's long profiled session."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
 
 
 def launch_breakdown(fn, reps, names):
@@ -1218,11 +1256,13 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_bshd
 from repro_torch.kernels.noma_rate.kernel import noma_rate
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan
 from repro_torch.kernels.ssd.kernel import ssd_scan
+from repro_torch.kernels.ssm_mixer import kernel as ssm_mixer
 from repro_torch.launch import hlo_cost, mesh as mesh_mod, steps
 from repro_torch.training import optim
 KERNELS = {"era_step": era_step_fused, "noma_rate": noma_rate,
            "flash_attention": flash_attention_bshd,
-           "rglru_scan": rglru_scan, "ssd": ssd_scan}
+           "rglru_scan": rglru_scan, "ssd": ssd_scan,
+           "ssm_mixer": ssm_mixer}
 rank = multihost.initialize_from_env().process_id
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
@@ -2018,17 +2058,6 @@ def phase_decode_attention(dev):
     lib = sdpa().transpose(1, 2)
     sdpa_diff = float((lib.float() - out.float()).abs().max())
 
-    def graph_ms(fn, reps=20):
-        """Device ms of a call of ``fn``: ``reps`` calls captured as one
-        CUDA graph and replayed between CUDA events, so no host time
-        falls between the launches (CUDA events around Python calls count
-        the wrapper's host time once that is the longer)."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            for _ in range(reps):
-                fn()
-        return cuda_ms(graph.replay, reps=5) / reps
-
     call = lambda: dk.decode_attention(q, k, v, slot_pos, now)
     ev_ms = cuda_ms(call, reps=50)
     t0 = time.perf_counter()
@@ -2290,6 +2319,159 @@ def phase_granite(dev):
             f"precision (ROADMAP queue 1)")
 
 
+# phase 25: the Mamba-2 serve cells' shapes: (config, users, tokens), the
+# prefill's and then the decode step's (one token: the gate kernel's only
+# decode call; the conv there is the plain path's)
+MIXER_SHAPES = (("mamba2-780m", SERVE_USERS, MAMBA_SEQ),
+                ("granite-4.0-h-small", GRANITE_USERS, GRANITE_SEQ),
+                ("mamba2-780m", SERVE_USERS, 1),
+                ("granite-4.0-h-small", GRANITE_USERS, 1))
+
+
+def mixer_check(got, plain, want):
+    """(outputs over one bf16 ulp of the float32 ``want``, the kernel's max
+    abs error, the plain bf16 path's), a batch row at a time."""
+    over, err, plain_err = 0, 0.0, 0.0
+    for r in range(want.shape[0]):
+        w32 = want[r]
+        e = (got[r].float() - w32).abs()
+        over += int((e > BF16_ULP_ATOL + BF16_ULP_RTOL * w32.abs()).sum())
+        err = max(err, float(e.max()))
+        plain_err = max(plain_err,
+                        float((plain[r].float() - w32).abs().max()))
+    return over, err, plain_err
+
+
+def phase_ssm_mixer(dev):
+    """Phase 25: the Mamba-2 mixer's conv and gated-norm kernels at the
+    serve cells' shapes against their plain versions, their device time
+    beside their byte bounds, and a whole ``ssm.prefill`` with and
+    without them (module docs).  Logs a line a shape; raises where a
+    kernel misses its bar or an instantiation spills.  Returns the
+    kernels' entry of the JSON line: the two kernels' device time
+    together, a full-sequence call's, at mamba2's shape and at
+    granite's."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_mixer import kernel as mk
+    from repro_torch.kernels.ssm_mixer import ops as mops
+    from repro_torch.kernels.ssm_mixer import ref as mref
+    from repro_torch.models import ssm
+    from repro_torch.telemetry import spans
+    t_phase = time.perf_counter()
+    usage = {re.sub(r"^.*?(?=(conv_silu|gated_norm)_kernel)", "", n_)[:44]:
+             u_ for n_, u_ in _build.ptxas_usage("ssm_mixer").items()}
+    spills = {n_: u_ for n_, u_ in usage.items() if u_[1] or u_[2]}
+    faults, at = [], {}
+    for name, b, l in MIXER_SHAPES:
+        cfg = configs.get_config(name)
+        di, n, h = cfg.d_inner, cfg.d_state, cfg.n_ssd_heads
+        dc, row = di + 2 * n, 2 * di + 2 * n + h
+        g = torch.Generator(device=dev).manual_seed(SEED + 2500)
+        rn = lambda *sh: torch.randn(sh, generator=g, device=dev)
+        zxbcdt = rn(b, l, row).to(torch.bfloat16)
+        z, xbc = zxbcdt[..., :di], zxbcdt[..., di:di + dc]
+        w = (rn(cfg.conv_width, dc) / 2).to(torch.bfloat16)
+        bias = (rn(dc) / 10).to(torch.bfloat16)
+        y = rn(b, l, di).to(torch.bfloat16)
+        norm_w = (1 + rn(di) / 10).to(torch.bfloat16)
+        eps = cfg.norm_eps
+        f32 = lambda *t: [u.float() for u in t]
+        conv = mk.causal_conv_silu(xbc, w, bias)
+        gate = mk.gated_rms_norm(y, z, norm_w, eps)
+        conv_chk = mixer_check(conv, mref.causal_conv_silu_ref(xbc, w, bias),
+                               mref.causal_conv_silu_ref(*f32(xbc, w, bias)))
+        gate_chk = mixer_check(gate, mref.gated_rms_norm_ref(y, z, norm_w,
+                                                             eps),
+                               mref.gated_rms_norm_ref(*f32(y, z, norm_w),
+                                                       eps))
+        del conv, gate
+        torch.cuda.empty_cache()
+        # device ms of each kernel (a graph of 20 calls between events:
+        # one launch a call), its byte bound, the plain path's event ms
+        conv_ms = graph_ms(lambda: mk.causal_conv_silu(xbc, w, bias))
+        gate_ms = graph_ms(lambda: mk.gated_rms_norm(y, z, norm_w, eps))
+        conv_bytes = 2 * (2 * b * l * dc + (cfg.conv_width + 1) * dc)
+        gate_bytes = 2 * (3 * b * l * di + di)
+        conv_plain = cuda_ms(lambda: mref.causal_conv_silu_ref(xbc, w, bias),
+                             reps=5)
+        gate_plain = cuda_ms(
+            lambda: mref.gated_rms_norm_ref(y, z, norm_w, eps), reps=5)
+        del zxbcdt, z, xbc, y
+        torch.cuda.empty_cache()
+        # one whole prefill of a full-width layer, with and without them
+        params = ssm.init(torch.Generator().manual_seed(SEED + 2501), cfg,
+                          dev)
+        x = rn(b, l, cfg.d_model).to(torch.bfloat16)
+        with spans.enable():
+            spans.clear()
+            with_k, _ = ssm.prefill(params, cfg, x)
+            (sp,) = [s_ for s_ in spans.finished() if s_.name == "ssm"]
+            spans.clear()
+        pre_ms = cuda_ms(lambda: ssm.prefill(params, cfg, x), reps=5)
+        with mock.patch.object(mops, "use_kernels",
+                               lambda impl, *t: False):
+            without, _ = ssm.prefill(params, cfg, x)
+            pre_plain = cuda_ms(lambda: ssm.prefill(params, cfg, x), reps=5)
+        gap = float((with_k.float() - without.float()).abs().max()
+                    / without.float().abs().max())
+        del params, x, with_k, without
+        torch.cuda.empty_cache()
+        conv_bound = conv_bytes / HBM_BYTES_S * 1e3
+        gate_bound = gate_bytes / HBM_BYTES_S * 1e3
+        log("ssm_mixer", config=name, shape=f"B{b}xL{l}xDc{dc}xDi{di}",
+            row_stride=row,
+            conv_device_ms=f"{conv_ms:.4f}", conv_bound_ms=f"{conv_bound:.4f}",
+            conv_bound_share=f"{conv_bound / conv_ms:.3f}",
+            conv_plain_ms=f"{conv_plain:.4f}",
+            conv_over_ulp=conv_chk[0], conv_max_abs_err=f"{conv_chk[1]:.3e}",
+            conv_plain_max_abs_err=f"{conv_chk[2]:.3e}",
+            gate_device_ms=f"{gate_ms:.4f}", gate_bound_ms=f"{gate_bound:.4f}",
+            gate_bound_share=f"{gate_bound / gate_ms:.3f}",
+            gate_plain_ms=f"{gate_plain:.4f}",
+            gate_over_ulp=gate_chk[0], gate_max_abs_err=f"{gate_chk[1]:.3e}",
+            gate_plain_max_abs_err=f"{gate_chk[2]:.3e}",
+            prefill_ms=f"{pre_ms:.4f}", prefill_plain_ms=f"{pre_plain:.4f}",
+            prefill_rel_gap=f"{gap:.3e}",
+            mixer_launches=sp.fields["mixer_launches"],
+            tol=f"{BF16_ULP_RTOL:.4g}_rel+{BF16_ULP_ATOL:g}_abs")
+        for what, (over, err, plain_err) in (("conv", conv_chk),
+                                             ("gate", gate_chk)):
+            if over or err > plain_err:
+                faults.append(f"{what} at {name}'s shape: {over} outputs "
+                              f"over one bf16 ulp, max abs err {err:.3e} "
+                              f"against the plain bf16 path's "
+                              f"{plain_err:.3e}")
+        if sp.fields["mixer_launches"] != 2:
+            faults.append(f"prefill at {name}'s shape launched "
+                          f"{sp.fields['mixer_launches']} mixer kernels")
+        at[name, l] = dict(
+            shape=f"B{b}xL{l}xDc{dc}xDi{di}", ms=conv_ms + gate_ms,
+            plain_ms=conv_plain + gate_plain,
+            bound_ms=conv_bound + gate_bound,
+            err=max(conv_chk[1], gate_chk[1]))
+    log("ssm_mixer_build", instantiations=len(usage),
+        max_registers=max(u_[0] for u_ in usage.values()),
+        spills=json.dumps(spills).replace(" ", ""),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if spills:
+        faults.append(f"ssm_mixer instantiations spill: {spills}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    m2 = at["mamba2-780m", MAMBA_SEQ]
+    gr = at["granite-4.0-h-small", GRANITE_SEQ]
+    return dict(
+        name="ssm_mixer", route="cuda",
+        source="src/repro_torch/csrc/ssm_mixer.cu",
+        replaces="none: src/repro/models/ssm.py _causal_conv, _out are "
+                 "plain jnp",
+        max_abs_err=max(v["err"] for v in at.values()),
+        max_scaled_err=None, ms=m2["ms"], event_ms=None,
+        plain_ms=m2["plain_ms"], bound_ms=m2["bound_ms"], bound_by="bytes",
+        library_ms=None, granite_shape=gr["shape"], granite_ms=gr["ms"],
+        granite_plain_ms=gr["plain_ms"], granite_bound_ms=gr["bound_ms"])
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is available")
@@ -2315,6 +2497,7 @@ def main():
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.kernels.ssd.kernel import ssd_scan
+    from repro_torch.kernels.ssm_mixer import kernel as ssm_mixer
     from repro_torch.launch import platform, serve
     from repro_torch.loadgen import make_trace, run_load
     from repro_torch.models import attention as attention_mod
@@ -2326,7 +2509,7 @@ def main():
     from repro_torch.models.common import Params, positions_for
     from repro_torch.serving import QoSGovernor, split_runtime
     from repro_torch.serving.cluster import SplitInferenceCluster
-    from repro_torch.telemetry import FileSink, TelemetryBus
+    from repro_torch.telemetry import FileSink, TelemetryBus, spans
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -2348,9 +2531,12 @@ def main():
     # each kernel's launches on every path that runs it, each path's counts
     # set to 0 just before it is driven and read just after
     by_path = {n: {} for n in ("era_step", "noma_rate", "flash_attention",
-                               "rglru_scan", "ssd", "decode_attention")}
+                               "rglru_scan", "ssd", "decode_attention",
+                               "ssm_mixer")}
+    # (the mixer's two kernels share one counter, a module attribute)
     KERNEL_FNS = {"era_step": era_step_fused, "noma_rate": noma_rate,
-                  "flash_attention": flash_attention_bshd}
+                  "flash_attention": flash_attention_bshd,
+                  "ssm_mixer": ssm_mixer}
     w = era.Weights()
 
     # ---- 3. era_step at paper width ------------------------------------
@@ -2966,6 +3152,7 @@ def main():
                            ).numpy()
     by_cell = {c: tokens[i] for i, c in enumerate(ids)}
     ssd_scan.launches = 0
+    ssm_mixer.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2973,10 +3160,12 @@ def main():
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches["ssd"] = ssd_scan.launches
-    by_path["ssd"]["mamba2"] = launches["ssd"]
-    if launches["ssd"] <= 0:
-        raise AssertionError("ssd was not launched on the mamba2 path")
+    for name, fn in (("ssd", ssd_scan), ("ssm_mixer", ssm_mixer)):
+        launches[name] = fn.launches
+        by_path[name]["mamba2"] = fn.launches
+        if fn.launches <= 0:
+            raise AssertionError(f"{name} was not launched on the mamba2 "
+                                 f"path")
     check_served(out, ids, mcfg)
     groups = {int(c): {s_: len(u) for s_, u in
                        mcluster.installed_schedule(c).groups().items()}
@@ -2992,12 +3181,13 @@ def main():
     # model's own spread (each block's output rounds to bf16, and a one-ulp
     # flip grows with depth).  The kernel's logits may be no further from
     # the plain path's than twice that spread.
-    n_ssd = ssd_scan.launches
+    n_ssd, n_mixer = ssd_scan.launches, ssm_mixer.launches
     plain, _ = transformer.forward(model, mcfg, rows, impl="naive")
     plain128, _ = transformer.forward(model, mcfg.replace(ssd_chunk=128),
                                       rows, impl="naive")
-    if ssd_scan.launches != n_ssd:
-        raise AssertionError("the plain forward launched the ssd kernel")
+    if ssd_scan.launches != n_ssd or ssm_mixer.launches != n_mixer:
+        raise AssertionError("the plain forward launched the ssd or a "
+                             "mixer kernel")
     scaled = lambda got, want: float((got - want).abs().max()
                                      / want.abs().max())
     plain_err, spread = scaled(fused, plain), scaled(plain128, plain)
@@ -3045,6 +3235,21 @@ def main():
                              f"tolerance {PLAIN_LOGIT_TOL}")
     del m32, f32_k, f32_p
     t_prof, busy_s, top = profiled_round(mcluster, by_cell)
+    # a round with the spans on, as a traced benchmark run has them: every
+    # ``ssm`` span launched both mixer kernels once
+    with spans.enable():
+        spans.clear()
+        n_mixer = ssm_mixer.launches
+        mcluster.serve_round(by_cell, decode_steps=DECODE_STEPS)
+        torch.cuda.synchronize()
+        span_round = ssm_mixer.launches - n_mixer
+        ssm_spans = [s_.fields["mixer_launches"] for s_ in spans.finished()
+                     if s_.name == "ssm"]
+        spans.clear()
+    if not ssm_spans or set(ssm_spans) != {2}:
+        raise AssertionError(f"the mamba2 round's ssm spans launched "
+                             f"{sorted(set(ssm_spans))} mixer kernels "
+                             f"({len(ssm_spans)} spans), not 2 each")
     mcluster.stop()
     log("mamba2_path", model=mcfg.name,
         params=transformer.param_count(model), d_model=mcfg.d_model,
@@ -3063,7 +3268,10 @@ def main():
                                f64_errs.items()}).replace(" ", ""),
         f32_kernel_vs_plain=f"{f32_err:.3e}",
         block_and_f32_tol=PLAIN_LOGIT_TOL,
-        launches=json.dumps({"ssd": launches["ssd"]}).replace(" ", ""))
+        launches=json.dumps({n: launches[n] for n in ("ssd", "ssm_mixer")}
+                            ).replace(" ", ""),
+        ssm_spans=len(ssm_spans), span_mixer_launches=sorted(set(ssm_spans)),
+        spanned_round_mixer_launches=span_round)
     log("mamba2_path_profile", round_s=f"{t_prof:.3f}",
         device_busy_s=f"{busy_s:.3f}",
         device_busy_share=f"{busy_s / t_prof:.3f}",
@@ -3428,8 +3636,8 @@ def main():
     # --device): the async cluster with the governor, churn and a JSONL
     # trace on the tiny mixtral, then the one-cell mode on the tiny dbrx
     t_phase = time.perf_counter()
-    for name in ("era_step", "noma_rate", "flash_attention"):
-        KERNEL_FNS[name].launches = 0
+    for fn in KERNEL_FNS.values():
+        fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         trace_path = os.path.join(tmp, "serve.jsonl")
         buf = io.StringIO()
@@ -3451,8 +3659,8 @@ def main():
                                  "--cells", "3", "--backend", "sharded"])
     sharded_out = buf.getvalue().splitlines()
     torch.cuda.synchronize()
-    for name in ("era_step", "noma_rate", "flash_attention"):
-        by_path[name]["launcher"] = KERNEL_FNS[name].launches
+    for name, fn in KERNEL_FNS.items():
+        by_path[name]["launcher"] = fn.launches
     missing = {"bootstrap", "admission_round", "serve_round", "cell_join",
                "cell_leave"} - streams
     if rc_async != 0 or rc_one != 0 or rc_sharded != 0 or missing:
@@ -3476,8 +3684,7 @@ def main():
         one_cell=repr(one_out[0]),
         sharded=repr("; ".join(sharded_out[:2])),
         streams=",".join(sorted(streams)),
-        launches=json.dumps({n: by_path[n]["launcher"] for n in
-                             ("era_step", "noma_rate", "flash_attention")}
+        launches=json.dumps({n: by_path[n]["launcher"] for n in KERNEL_FNS}
                             ).replace(" ", ""),
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
@@ -3497,7 +3704,8 @@ def main():
     # it runs the plain paths, which the kernels' counts show: 0 launches
     train_fns = {"era_step": era_step_fused, "noma_rate": noma_rate,
                  "flash_attention": flash_attention_bshd,
-                 "rglru_scan": rglru_scan, "ssd": ssd_scan}
+                 "rglru_scan": rglru_scan, "ssd": ssd_scan,
+                 "ssm_mixer": ssm_mixer}
     phase_training_tiny(dev, by_path, train_fns)
     phase_training_full(dev, by_path, train_fns, smi)
 
@@ -3512,6 +3720,10 @@ def main():
     # ---- 23. decode attention at mixtral's decode shape --------------------
     kernels.append(phase_decode_attention(dev))
 
+    # ---- 25. the Mamba-2 mixer's elementwise kernels ------------------------
+    # (before phase 24, whose known fault would keep it out of the line)
+    kernels.append(phase_ssm_mixer(dev))
+
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = by_path[k["name"]]
@@ -3519,7 +3731,8 @@ def main():
              "launches_by_path", "max_abs_err", "max_scaled_err", "ms",
              "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "mixtral_shape", "mixtral_ms", "mixtral_plain_ms",
-             "mixtral_bound_ms", "mixtral_library_ms")
+             "mixtral_bound_ms", "mixtral_library_ms", "granite_shape",
+             "granite_ms", "granite_plain_ms", "granite_bound_ms")
     print(json.dumps({"kernels": [{f: k[f] for f in order if f in k}
                                   for k in kernels]}))
 

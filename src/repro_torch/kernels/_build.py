@@ -7,7 +7,10 @@ keyed by a hash of the sources, the headers they share (``csrc/*.cuh``)
 and the flags, so a checkout builds it at first use and reuses it after.  The sources compile in parallel, one ``nvcc`` per
 file, then link.  No ``--use_fast_math``: ``log2f``, ``expf`` and division
 must stay accurate for the kernels' 1e-5 agreement with their plain
-versions.
+versions.  The one exception is ``ssm_mixer.cu``'s SiLU, which calls the
+intrinsic ``__expf`` and ``__fdividef`` itself: each is within a few
+float32 ulp, far under its bf16 output's half ulp, and the IEEE versions
+cost the memory-bound conv about as many instructions as its bytes allow.
 """
 from __future__ import annotations
 
@@ -157,6 +160,17 @@ def library() -> ctypes.CDLL:
         [ptr] * 7 + [i32] * 8
         + [ctypes.c_float, ctypes.POINTER(i64), ctypes.POINTER(i64), ptr])
     lib.decode_attention_launch.restype = i32
+    # x, w, bias, o; B, L, C; x's batch and row strides; vec, dtype; the
+    # stream
+    lib.ssm_conv_silu_launch.argtypes = ([ptr] * 4 + [i32] * 3 + [i64] * 2
+                                         + [i32] * 2 + [ptr])
+    lib.ssm_conv_silu_launch.restype = i32
+    # y, z, w, o; B, L, C; y's and z's batch and row strides; eps; vec,
+    # vectors a thread, threads a block, dtype; the stream
+    lib.ssm_gated_norm_launch.argtypes = (
+        [ptr] * 4 + [i32] * 3 + [i64] * 4 + [ctypes.c_float] + [i32] * 4
+        + [ptr])
+    lib.ssm_gated_norm_launch.restype = i32
     return lib
 
 

@@ -11,12 +11,24 @@ reference in the JAX package.  ``forward`` needs L to be a multiple of
 step (``ref.ssd_decode_step_``, the cache updated in place).  SSD math
 in float32; y rounds to the activations' dtype before the gate.
 
+The conv with its SiLU and the gated norm go through
+``kernels.ssm_mixer.ops``, whose ``use_kernels`` is the rule: under
+``impl="kernel"`` on plain CUDA tensors, the hand-written one-pass
+kernels, which keep float32 from load to store; everywhere else (the
+CPU, meta tensors in the dry run, DTensors on a mesh, training's other
+impls) the plain ops of ``kernels.ssm_mixer.ref``.  The decode step takes
+no ``impl``, as attention's decode does: its gated norm is the kernel's
+on the card; its conv stays plain.
+
 Each full-sequence call (``forward``, ``prefill``) is an ``ssm`` span
-(``telemetry.spans``) with ``rows``, ``tokens`` and ``heads``; the
-decode step opens none.
+(``telemetry.spans``) with ``rows``, ``tokens``, ``heads`` and
+``mixer_launches``, the mixer kernels' launches in it
+(``kernels.ssm_mixer.kernel.launches``: 2 a call on the card, 0 on the
+plain path); the decode step opens none.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -24,9 +36,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssm_mixer import kernel as mixer_kernel
+from repro_torch.kernels.ssm_mixer import ops as mixer_ops
 from repro_torch.models.common import (Params, batch_local, dense_init,
-                                       dtype_of, rms_norm, settled,
-                                       shift_right, sub_generator)
+                                       dtype_of, settled, sub_generator)
 from repro_torch.telemetry import spans
 
 
@@ -73,19 +86,7 @@ def _split(cfg, zxbcdt):
     return z, xbc, dt
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal conv via shifted adds, then silu (the RG-LRU's
-    conv in ``models/rglru.py`` has no activation). xbc (B,L,Dc); w
-    (W,Dc)."""
-    wsize = w.shape[0]
-    out = xbc * w[-1]
-    for i in range(1, wsize):
-        shifted = shift_right(xbc, i)
-        out = out + shifted * w[-1 - i]
-    return F.silu(out + b)
-
-
-def _scan_inputs(params, cfg, x):
+def _scan_inputs(params, cfg, x, impl):
     """in_proj, conv and the SSD operands of a full sequence x (B,L,d):
     (z, xbc before the conv, xs (B,L,H,P), B, C, dt (B,L,H) float32, A)."""
     b, l, _ = x.shape
@@ -93,7 +94,9 @@ def _scan_inputs(params, cfg, x):
     # settled on a mesh: the product over a model-sharded d_model is a
     # partial sum, which DTensor's pad (the conv's shifts) cannot take
     z, xbc_raw, dt_raw = _split(cfg, settled(x @ params.in_proj))
-    xbc = _causal_conv(xbc_raw, params.conv_w, params.conv_b)
+    # the conv reads the in_proj output's slice in place
+    xbc = mixer_ops.causal_conv_silu(xbc_raw, params.conv_w, params.conv_b,
+                                     impl)
     xs = xbc[..., :di].reshape(b, l, h, cfg.ssd_head_dim)
     B = xbc[..., di:di + n]
     C = xbc[..., di + n:]
@@ -112,12 +115,11 @@ def _scan(params, cfg, xs, dt, A, B, C, impl):
     return scan(xs, dt, A, B, C, params.D) if out is None else out
 
 
-def _out(params, cfg, y, z):
+def _out(params, cfg, y, z, impl):
     """Gated rms norm and out_proj of the scan's y (B,L,H,P)."""
     b, l = y.shape[:2]
     y = y.reshape(b, l, cfg.d_inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params.norm_w,
-                 cfg.norm_eps)
+    y = mixer_ops.gated_rms_norm(y, z, params.norm_w, cfg.norm_eps, impl)
     return y @ params.out_proj
 
 
@@ -130,27 +132,34 @@ def check_whole_chunks(cfg, l):
                          f"SSD chunk {chunk}; prefill takes any length")
 
 
+@contextlib.contextmanager
 def _span(cfg, x):
-    """The ``ssm`` span of a full-sequence call on x (B,L,d)."""
+    """The ``ssm`` span of a full-sequence call on x (B,L,d), its
+    ``mixer_launches`` set at the close."""
     b, l = x.shape[:2]
-    return spans.span("ssm", rows=b, tokens=b * l, heads=cfg.n_ssd_heads)
+    n0 = mixer_kernel.launches
+    with spans.span("ssm", rows=b, tokens=b * l,
+                    heads=cfg.n_ssd_heads) as span:
+        yield
+        span.set(mixer_launches=mixer_kernel.launches - n0)
 
 
 def forward(params, cfg, x, impl="kernel"):
     """Full-sequence SSD mixer. x (B,L,d) -> y (B,L,d)."""
     check_whole_chunks(cfg, x.shape[1])
     with _span(cfg, x):
-        z, _, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
+        z, _, xs, B, C, dt, A = _scan_inputs(params, cfg, x, impl)
         y, _ = _scan(params, cfg, xs, dt, A, B, C, impl)
-        return _out(params, cfg, y, z)
+        y = _out(params, cfg, y, z, impl)
+    return y
 
 
 def prefill(params, cfg, x, impl="kernel"):
     """Forward + cache capture (SSD state + conv history), any length."""
     with _span(cfg, x):
-        z, xbc_raw, xs, B, C, dt, A = _scan_inputs(params, cfg, x)
+        z, xbc_raw, xs, B, C, dt, A = _scan_inputs(params, cfg, x, impl)
         y, state = _scan(params, cfg, xs, dt, A, B, C, impl)
-        y = _out(params, cfg, y, z)
+        y = _out(params, cfg, y, z, impl)
     w = cfg.conv_width - 1
     l = x.shape[1]
     # a copy, not a view: a view would keep the whole in_proj output of
@@ -193,4 +202,6 @@ def decode_step(params, cfg, x, cache):
     A = -torch.exp(params.A_log)
     y = ssd_ref.ssd_decode_step_(xs, dt, A, B, C, params.D, cache["state"])
     cache["conv"].copy_(hist[:, 1:, :])
-    return _out(params, cfg, y[:, None], z), cache
+    # decode takes no impl (as attention's decode kernel): the gate
+    # kernel wherever the tensors are plain CUDA ones
+    return _out(params, cfg, y[:, None], z, "kernel"), cache

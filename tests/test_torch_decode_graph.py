@@ -143,8 +143,8 @@ def _fresh_ssm_step(params, cfg, x, cache):
     state = decay * cache["state"] + upd
     y = torch.einsum("bhpn,bn->bhp", state, C.float())
     y = (y + xf * params.D[None, :, None]).to(xs.dtype)
-    return ssm._out(params, cfg, y[:, None], z), {"conv": hist[:, 1:, :],
-                                                  "state": state}
+    return ssm._out(params, cfg, y[:, None], z, "kernel"), {
+        "conv": hist[:, 1:, :], "state": state}
 
 
 def _fresh_rglru_step(params, cfg, x, cache):
